@@ -1,0 +1,4 @@
+"""PyTorch port of the doppelspeller matcher for NVIDIA Hopper GPUs.
+
+The JAX package ``doppelspeller_tpu`` is the reference; module paths mirror it.
+"""

@@ -1,0 +1,26 @@
+"""The device a matcher runs on, named by the caller.
+
+There is no automatic choice and no fallback: asking for CUDA where there is
+none raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    if device is None:
+        raise ValueError("pass device explicitly, e.g. device='cuda' or device='cpu'")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for queued device work (so host timings cover it)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

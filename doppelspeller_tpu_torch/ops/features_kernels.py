@@ -1,0 +1,98 @@
+"""Kernel B: best sliding-window LCS ratio per candidate word.
+
+``window_best`` launches the CUDA kernel ``csrc/window_lcs.cu`` on CUDA
+tensors and runs ``window_best_plain`` on CPU tensors; there is no other
+route.  Both replace the TPU kernel
+``doppelspeller_tpu/ops/features_pallas.py::_kernel`` (``window_best_pallas``)
+with exactly its semantics: for each (pair, word slot) and window start
+p < TL the bit-parallel LCS of the word (≤ 32 chars) against the spaceless
+query characters [p, p + wlen) (none past ``q_wo_len``; pad codes never
+match), ratio floor(200·lcs / max(wlen + min(wlen, qwol − p), 1)), −1 for
+an invalid window, and the first p reaching the best ratio.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from doppelspeller_tpu_torch import _build
+from doppelspeller_tpu_torch.ops.levenshtein import popcount32
+
+WL_MAX = 32
+
+
+def window_best_plain(word_chars: torch.Tensor, word_len: torch.Tensor,
+                      q_wo: torch.Tensor, q_wo_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B, vectorized over (pair, word, p)."""
+    B, W, WL = word_chars.shape
+    TL = q_wo.shape[1]
+    dev = q_wo.device
+    wlen = torch.clamp(word_len.to(torch.int64), max=WL_MAX)            # (B, W)
+    qwol = q_wo_len.to(torch.int64)                                      # (B,)
+    a = torch.arange(TL, device=dev)
+    text = q_wo.to(torch.int64)
+    text_ok = (a[None, :] < qwol[:, None]) & (text > 0)                  # (B, TL)
+    # M[b, w, a]: bit i set where word char i equals text char a; padded
+    # by WL zero columns so window p reads columns p .. p + WL - 1
+    M = torch.zeros((B, W, TL + WL), dtype=torch.int64, device=dev)
+    for i in range(WL):
+        ci = word_chars[:, :, i].to(torch.int64)
+        eq = (ci[:, :, None] == text[:, None, :]) & text_ok[:, None, :]
+        M[:, :, :TL] |= eq.to(torch.int64) << i
+    mask = torch.where(wlen >= 32, torch.full_like(wlen, 0xFFFFFFFF),
+                       (torch.ones_like(wlen) << wlen) - 1)[:, :, None]  # (B, W, 1)
+    V = mask.expand(B, W, TL).clone()
+    for r in range(WL):
+        act = (r < wlen)[:, :, None]
+        U = V & torch.where(act, M[:, :, r : r + TL], torch.zeros_like(V))
+        V = ((V + U) | (V - U)) & mask
+    lcs = wlen[:, :, None] - popcount32(V)                               # (B, W, TL)
+    win = torch.minimum(wlen[:, :, None], qwol[:, None, None] - a[None, None, :])
+    total = (wlen[:, :, None] + win).to(torch.float32)
+    ratio = torch.floor(200.0 * lcs.to(torch.float32) / torch.clamp(total, min=1.0))
+    valid = (a[None, None, :] < qwol[:, None, None]) & (wlen[:, :, None] > 0)
+    ratio = torch.where(valid, ratio, torch.full_like(ratio, -1.0))
+    best = ratio.max(dim=2).values
+    best_p = (ratio == best[:, :, None]).to(torch.int32).argmax(dim=2)   # first max
+    return best, best_p.to(torch.int32)
+
+
+def window_best(word_chars: torch.Tensor, word_len: torch.Tensor,
+                q_wo: torch.Tensor, q_wo_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """word_chars u8 (B, W, WL ≤ 32), word_len i32 (B, W), q_wo u8 (B, TL),
+    q_wo_len i32 (B,) → (best_ratio f32 (B, W), best_p i32 (B, W)).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    B, W, WL = word_chars.shape
+    TL = q_wo.shape[1]
+    if WL > WL_MAX:
+        raise ValueError(f"kernel B takes words of at most {WL_MAX} chars, got WL={WL}")
+    if word_len.shape != (B, W) or q_wo.shape[0] != B or q_wo_len.shape != (B,):
+        raise ValueError("window_best: shape mismatch")
+    dev = q_wo.device
+    if dev.type == "cpu":
+        return window_best_plain(word_chars, word_len, q_wo, q_wo_len)
+    if dev.type != "cuda":
+        raise RuntimeError(f"kernel B runs on CUDA tensors, not {dev}")
+    tensors = (word_chars, word_len, q_wo, q_wo_len)
+    if any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError("kernel B inputs must be contiguous and on one device")
+    if (word_chars.dtype != torch.uint8 or q_wo.dtype != torch.uint8
+            or word_len.dtype != torch.int32 or q_wo_len.dtype != torch.int32):
+        raise TypeError("kernel B takes uint8 chars and int32 lengths")
+    ratio = torch.empty((B, W), dtype=torch.float32, device=dev)
+    pos = torch.empty((B, W), dtype=torch.int32, device=dev)
+    if B * W == 0:
+        return ratio, pos
+    rc = _build.lib().doppel_window_best(
+        word_chars.data_ptr(), word_len.data_ptr(), q_wo.data_ptr(), q_wo_len.data_ptr(),
+        ratio.data_ptr(), pos.data_ptr(), B, W, WL, TL,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "doppel_window_best")
+    window_best.launches += 1
+    return ratio, pos
+
+
+window_best.launches = 0

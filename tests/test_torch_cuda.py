@@ -1,0 +1,96 @@
+"""PyTorch port, CUDA kernels against their plain versions on the card.
+
+Imports no JAX, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a card every test here skips (the kernels have no CPU mode; their
+plain versions are held equal to the JAX package by the other
+``test_torch_*`` files).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from doppelspeller_tpu_torch.ops import features_kernels as fk
+from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _a_inputs(seed, qb, C, folds, ntp, nt, device):
+    rng = np.random.default_rng(seed)
+    U = folds * C
+    rows = np.packbits(rng.random((U, ntp // 8, 8)) < 0.06, axis=2, bitorder="little")[:, :, 0]
+    w = (rng.random((qb, U)) * 8.0).astype(np.float32)
+    w[rng.random((qb, U)) < 0.93] = 0.0
+    sums = (rng.random(ntp) * 50.0 + 10.0).astype(np.float32)
+    sums[nt:] = 0.0
+    maxint = (rng.random(qb) * 50.0 + 10.0).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (rows, w, sums, maxint)]
+
+
+@pytest.mark.parametrize("tb,W,folds,score_dtype", [
+    (2048, 16, 2, "float32"),
+    (2048, 16, 2, "bfloat16"),
+    (2048, 16, 1, "float32"),
+    (128, 1, 2, "float32"),
+])
+def test_kernel_a_matches_plain(cuda, tb, W, folds, score_dtype):
+    nt = 60_000
+    rows, w, sums, maxint = _a_inputs(tb + folds, 37, 512, folds, 1 << 16, nt, cuda)
+    before = jk.score_window_select.launches
+    wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds,
+                                    score_dtype=score_dtype)
+    assert jk.score_window_select.launches == before + 1
+    wp, ap = jk.score_window_select_plain(rows, jk.round_weights(w, score_dtype), sums, maxint, nt,
+                                          tb=tb, W=W, folds=folds)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+    # titles: with random f32 weights, near-ties between a window's offsets
+    # (where the two summation orders may pick different offsets) are rare
+    assert (ak == ap).float().mean() > 0.999
+    first_pad_tile = -(-nt // tb)
+    assert (wk[:, first_pad_tile * (tb // W):] == -1).all()
+
+
+def test_kernel_a_rejects_what_it_does_not_take(cuda):
+    rows, w, sums, maxint = _a_inputs(0, 8, 64, 2, 1 << 14, 10_000, cuda)
+    with pytest.raises(ValueError):
+        jk.score_window_select(rows[:, ::2], w, sums[::2], maxint, 100, tb=2048, W=16, folds=2,
+                               score_dtype="float32")
+    with pytest.raises(ValueError):
+        jk.score_window_select(rows, w, sums, maxint, 100, tb=4096, W=16, folds=2,
+                               score_dtype="float32")
+
+
+def _b_inputs(seed, B, TL, WL, device):
+    rng = np.random.RandomState(seed)
+    q_wo = rng.randint(2, 9, (B, TL)).astype(np.uint8)
+    q_wo_len = rng.randint(0, TL + 1, B).astype(np.int32)
+    q_wo[np.arange(TL)[None, :] >= q_wo_len[:, None]] = 0
+    wlen = rng.randint(0, WL + 1, (B, 15)).astype(np.int32)
+    wlen[:, 6:] = 0
+    chars = (rng.randint(2, 9, (B, 15, WL)) * (np.arange(WL) < wlen[:, :, None])).astype(np.uint8)
+    return [torch.from_numpy(x).to(device) for x in (chars, wlen, q_wo, q_wo_len)]
+
+
+@pytest.mark.parametrize("TL,WL", [(32, 8), (64, 16), (64, 32), (128, 32)])
+def test_kernel_b_matches_plain_exactly(cuda, TL, WL):
+    args = _b_inputs(TL + WL, 3000, TL, WL, cuda)
+    before = fk.window_best.launches
+    rk, pk = fk.window_best(*args)
+    assert fk.window_best.launches == before + 1
+    rp, pp = fk.window_best_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp)
+    assert torch.equal(pk, pp)
