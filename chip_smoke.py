@@ -5,24 +5,43 @@
 Phases, each printing its seconds; any failure exits non-zero:
 
 1. device: needs CUDA; prints the card's name and power limit.
-2. build: compiles the port's CUDA kernels from ``doppelspeller_tpu_torch/csrc``.
-3. kernel A (folded coarse scoring with window select) against its plain
-   PyTorch version at the main path's shapes (QB=128, U=1024, folds=2,
-   524,288 titles, tb=2048, W=16), in f32 and in bf16.
+2. build: compiles the port's CUDA kernels from ``doppelspeller_tpu_torch/csrc``
+   (one ``nvcc`` per source, side by side).
+3. kernel A (scoring with window select) against its plain PyTorch version
+   at the folded path's shapes (QB=128, U=1024, folds=2, 524,288 titles,
+   tb=2048, W=16) and at the exact path's largest union at 150k titles
+   (folds=1, U=3,072 gathered rows, 163,840 titles), each in f32 and in
+   bf16.
 4. kernel B (sliding-window LCS) against its plain version at model-stage
    shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.
-5. small world: the port on the card against the port's plain CPU path
+5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
+   index (500k titles), exactly equal to ``index_select``.
+6. kernel D (full Jaccard matrix): QB=128, U=3,072, 524,288 titles,
+   tb=2048, in f32 (rtol 1e-5) and with bf16 output (one bf16 ulp); top-k
+   titles equal wherever the f32 scores are untied.
+7. kernel E (the v1 entry over D's kernel) at the same shapes, f32.
+8. small worlds: the port on the card against the port's plain CPU path
    (the path the CPU tests hold equal to the JAX package) on a 4,096-title
-   world, f32 scoring.
-6. main path: 500,000 titles x 16,384 queries (the bench world, seed 7),
-   the committed 60-tree model, default Config (folded two-hash retrieval,
-   bf16 coarse weights, adaptive model depth); one untimed and one timed
-   ``Matcher.predict``; both kernels must have launched in the timed run,
-   every stage must match rows and accuracy must reach 0.80.
+   world, folded in f32 and exact under the default config.
+9. folded main path: 500,000 titles x 16,384 queries (the bench world,
+   seed 7), the committed 60-tree model, default Config (folded two-hash
+   retrieval, bf16 coarse weights, adaptive model depth); one untimed and
+   one timed ``Matcher.predict``; kernels A and B must launch in the timed
+   run, every stage must match rows and accuracy must reach 0.80.
+10. exact main path: 150,000 titles x 16,384 queries, default Config
+    (``auto`` resolves to exact: bf16, window select, so kernel C then A
+    with folds=1); the same checks, with C and A launching.
+11. oracle anchor: the bench's exact-config oracle (f32, full matrix and
+    exact top-k, model depth 0) on every 2nd query of the 500k world, the
+    first 6,000; kernels C and D must launch, and the folded path's
+    accuracy on the sample must be within 0.01 of the oracle's.
+12. v1 path: the same sample's query blocks through the v1 entry (kernel
+    E, with the planner's weights and bound), which must agree with the
+    oracle engine's kernel D retrieval.
 
 The line before the last is a JSON object with every kernel's route,
-source, launches in the timed run, error and times; the last line is
-``{"ok": true, "device": {...}}``.
+source, launches in the path that carries it, error and times; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -32,10 +51,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL = os.path.join(ROOT, "doppelspeller_tpu_torch", "assets", "bench_model_r60.npz")
 
 N_TITLES, N_QUERIES, SEED = 500_000, 16_384, 7
+N_TITLES_EXACT = 150_000
+ORACLE_QUERIES, ORACLE_DELTA = 6000, 0.01
 ACCURACY_FLOOR = 0.80
 
 
@@ -60,18 +83,22 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def check_kernel_a(torch, jk):
+def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
+    """Kernel A against its plain version at one shape (QB=128, tb=2048,
+    W=16), in f32 and with bf16 weights; returns errors and times."""
     rng = torch.Generator(device="cuda").manual_seed(SEED)
-    qb, C, folds, ntp, nt, tb, W = 128, 512, 2, 524_288, 500_000, 2048, 16
-    U = folds * C
+    qb, tb, W = 128, 2048, 16
+    C = U // folds
     rows = (torch.rand((U, ntp), device="cuda", generator=rng) < 0.06)
     rows = (rows.view(U, ntp // 8, 8).to(torch.uint8)
             << torch.arange(8, device="cuda", dtype=torch.uint8)).sum(dim=2, dtype=torch.uint8)
     w = torch.rand((qb, U), device="cuda", generator=rng) * 10.0
-    w = torch.where(torch.rand((qb, U), device="cuda", generator=rng) < 0.94, torch.zeros_like(w), w)
+    w = torch.where(torch.rand((qb, U), device="cuda", generator=rng) < zero_share, torch.zeros_like(w), w)
     sums = torch.rand(ntp, device="cuda", generator=rng) * 60.0 + 20.0
     sums[nt:] = 0.0
-    maxint = torch.rand(qb, device="cuda", generator=rng) * 60.0 + 20.0
+    # the bound is at least any intersection, as on the real path, so no
+    # denominator comes near zero (where summation order alone moves scores)
+    maxint = w.sum(dim=1)
     out = {}
     for dt in ("float32", "bfloat16"):
         wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds,
@@ -85,7 +112,11 @@ def check_kernel_a(torch, jk):
             # titles must agree wherever the window's best two offsets are not tied
             bits = ((rows[:, :, None] >> torch.arange(8, device="cuda", dtype=torch.uint8)) & 1)
             bits = bits.reshape(U, ntp).float()
-            num = torch.minimum(w[:, :C] @ bits[:C], w[:, C:] @ bits[C:])
+            num = None
+            for f in range(folds):
+                part = w[:, f * C : (f + 1) * C] @ bits[f * C : (f + 1) * C]
+                num = part if num is None else torch.minimum(num, part)
+            del bits
             jacc = num / torch.clamp((sums[None] + maxint[:, None]) - num, min=1e-9)
             jacc = torch.where(torch.arange(ntp, device="cuda")[None] < nt, jacc, torch.full_like(jacc, -1.0))
             local = jk.window_titles(tb, W, "cuda")
@@ -93,8 +124,8 @@ def check_kernel_a(torch, jk):
             top2 = jw.topk(2, dim=2).values
             untied = (top2[:, :, 0] - top2[:, :, 1] > 1e-6 * top2[:, :, 0].abs()).reshape(qb, -1)
             if not torch.equal(ak[untied], ap[untied]):
-                raise AssertionError("kernel A window titles differ from the plain version")
-            print(f"# kernel A f32: max |wmax err| {err:.3e} (rtol 1e-5); titles equal on "
+                raise AssertionError(f"kernel A ({label}) window titles differ from the plain version")
+            print(f"# kernel A f32 ({label}): max |wmax err| {err:.3e} (rtol 1e-5); titles equal on "
                   f"{int(untied.sum())}/{untied.numel()} untied windows", flush=True)
             out["max_abs_err"] = err
             out["ms"] = cuda_ms(lambda: jk.score_window_select(
@@ -103,12 +134,23 @@ def check_kernel_a(torch, jk):
                 rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds))
         else:
             if err > 1e-2:
-                raise AssertionError(f"kernel A bf16 max |wmax err| {err} > 1e-2")
-            print(f"# kernel A bf16: max |wmax err| {err:.3e} (atol 1e-2)", flush=True)
+                raise AssertionError(f"kernel A ({label}) bf16 max |wmax err| {err} > 1e-2")
+            print(f"# kernel A bf16 ({label}): max |wmax err| {err:.3e} (atol 1e-2)", flush=True)
             out["ms_bf16"] = cuda_ms(lambda: jk.score_window_select(
                 rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds, score_dtype="bfloat16"))
-    print(f"# kernel A: {out['ms']:.3f} ms (bf16 {out['ms_bf16']:.3f} ms), plain "
+    print(f"# kernel A ({label}): {out['ms']:.3f} ms (bf16 {out['ms_bf16']:.3f} ms), plain "
           f"{out['plain_ms']:.3f} ms per 128-query block", flush=True)
+    return out
+
+
+def check_kernel_a(torch, jk):
+    """At the folded path's shapes (the main numbers) and at the exact
+    path's largest union at 150k titles (keys ending in ``_folds1``)."""
+    out = check_kernel_a_at(torch, jk, "folds=2, U=1,024, 524,288 titles", 2, 1024, 524_288,
+                            500_000, 0.94)
+    exact = check_kernel_a_at(torch, jk, "folds=1, U=3,072, 163,840 titles", 1, 3072, 163_840,
+                              150_000, 0.98)
+    out.update({f"{k}_folds1": v for k, v in exact.items()})
     return out
 
 
@@ -139,6 +181,170 @@ def check_kernel_b(torch, fk):
     return out
 
 
+def union_inputs(torch):
+    """A random 500k-title packed index (3.3 GB) and one 128-query block over
+    a 3,072-row union of it: the exact path's shapes at 500k titles."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    V, ntp, nt, qb, U, lq = 50_653, 524_288, 500_000, 128, 3072, 64
+    packed = torch.randint(0, 256, (V, ntp // 8), device="cuda", generator=g, dtype=torch.uint8)
+    union_ids = torch.randperm(V, device="cuda", generator=g)[:U].to(torch.int32)
+    # each query holds lq trigrams of the union, padded past a per-query count
+    w_pos = torch.rand((qb, U), device="cuda", generator=g).argsort(dim=1)[:, :lq]
+    w_pos = torch.sort(w_pos, dim=1).values.to(torch.int32)
+    n = torch.randint(8, lq + 1, (qb, 1), device="cuda", generator=g)
+    w_pos = torch.where(torch.arange(lq, device="cuda")[None] < n, w_pos, U).to(torch.int32)
+    w_val = torch.rand((qb, lq), device="cuda", generator=g) * 8.0 + 0.5
+    sums = torch.rand(ntp, device="cuda", generator=g) * 60.0 + 20.0
+    sums[nt:] = 0.0
+    maxint = torch.rand(qb, device="cuda", generator=g) * 60.0 + 600.0
+    return dict(packed=packed, union_ids=union_ids, w_pos=w_pos, w_val=w_val, sums=sums,
+                maxint=maxint, nt=nt, tb=2048)
+
+
+def check_kernel_c(torch, jk, d):
+    packed, ids = d["packed"], d["union_ids"]
+    out = jk.gather_rows(packed, ids)
+    plain = jk.gather_rows_plain(packed, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        raise AssertionError("kernel C differs from index_select")
+    res = {"max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: jk.gather_rows(packed, ids)),
+           "plain_ms": cuda_ms(lambda: jk.gather_rows_plain(packed, ids))}
+    print(f"# kernel C: exactly equal; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
+          f"({ids.shape[0]} rows x {packed.shape[1]} bytes)", flush=True)
+    return res
+
+
+def check_kernel_d(torch, jk, d):
+    rows = jk.gather_rows(d["packed"], d["union_ids"])
+    w = jk.densify_weights(d["w_pos"], d["w_val"], rows.shape[0])
+    sums, maxint, nt, tb = d["sums"], d["maxint"], d["nt"], d["tb"]
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        out = jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=dt)
+        plain = jk.score_full_plain(rows, jk.round_weights(w, dt), sums, maxint, nt, tb=tb,
+                                    out_dtype=jk.score_out_dtype(dt))
+        torch.cuda.synchronize()
+        err = float((out.float() - plain.float()).abs().max())
+        vk, pk = jk.select_topk_permuted(out, 100, tb)
+        vp, pp = jk.select_topk_permuted(plain, 100, tb)
+        if dt == "float32":
+            torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-7)
+            sep = jk.untied_slots(vp, 1e-6)
+            res["max_abs_err"] = err
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp(min=1e-30))) - 7)
+            n_over = int(((out.float() - plain.float()).abs() > ulp).sum())
+            if n_over:
+                raise AssertionError(f"kernel D bf16: {n_over} scores differ by more than one ulp")
+            # one ulp each way cannot reorder scores more than two ulps apart
+            sep = jk.untied_slots(vp, float(2 * ulp.max()))
+            res["max_abs_err_bf16"] = err
+        if not torch.equal(pk[sep], pp[sep]):
+            raise AssertionError(f"kernel D {dt}: top-k titles differ where untied")
+        ms = cuda_ms(lambda: jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=dt))
+        plain_ms = cuda_ms(lambda: jk.score_full_plain(
+            rows, jk.round_weights(w, dt), sums, maxint, nt, tb=tb, out_dtype=jk.score_out_dtype(dt)))
+        print(f"# kernel D {dt}: max |err| {err:.3e}; top-100 titles equal on {int(sep.sum())} "
+              f"untied slots; {ms:.3f} ms, plain {plain_ms:.3f} ms per 128-query block "
+              f"(U={rows.shape[0]}, {rows.shape[1] * 8} titles)", flush=True)
+        suffix = "" if dt == "float32" else "_bf16"
+        res["ms" + suffix], res["plain_ms" + suffix] = ms, plain_ms
+    return res
+
+
+def check_kernel_e(torch, jk, d):
+    args = (d["packed"], d["sums"], d["union_ids"], d["w_pos"], d["w_val"], d["maxint"], d["nt"])
+    kw = dict(k=100, tb=d["tb"], score_dtype="float32")
+    vk, pk = jk.jaccard_topk_v1(*args, **kw)
+    vp, pp = jk.jaccard_topk_v1_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
+    sep = jk.untied_slots(vp, 1e-6)
+    if not torch.equal(pk[sep], pp[sep]):
+        raise AssertionError("kernel E: top-k titles differ where untied")
+    res = {"max_abs_err": float((vk - vp).abs().max()),
+           "ms": cuda_ms(lambda: jk.jaccard_topk_v1(*args, **kw)),
+           "plain_ms": cuda_ms(lambda: jk.jaccard_topk_v1_plain(*args, **kw))}
+    print(f"# kernel E: max |top-k err| {res['max_abs_err']:.3e} (rtol 1e-5); titles equal on "
+          f"{int(sep.sum())} untied slots; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
+          f"per 128-query block (gather, densify, score, select)", flush=True)
+    return res
+
+
+def check_small_world(torch, Matcher, make_world, model, cfg, label):
+    _, truth, queries, _ = make_world(4096, 512, seed=SEED, config=cfg)
+    r_cpu = Matcher(cfg, truth, model, device="cpu").predict(queries)
+    m_gpu = Matcher(cfg, truth, model, device="cuda")
+    r_gpu = m_gpu.predict(queries)
+    same = (r_cpu.match_title_id == r_gpu.match_title_id) & (r_cpu.stage == r_gpu.stage)
+    engine = "exact" if m_gpu.scorer.exact is not None else "folded"
+    print(f"# small world ({label}, {engine} retrieval): card agrees with the plain CPU path on "
+          f"{int(same.sum())}/{len(same)} rows (tolerance: 99 %); max |pred diff| "
+          f"{float(abs(r_cpu.prediction - r_gpu.prediction)[same].max()):.2e}", flush=True)
+    if same.mean() < 0.99:
+        raise AssertionError(f"card and plain CPU path disagree on the small world ({label})")
+    return engine
+
+
+def reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def read_counts(counters):
+    return {name: c.launches for name, c in counters.items()}
+
+
+def check_prediction(res, actual, n):
+    accuracy = float((res.match_title_id == actual).mean())
+    if res.match_title_id.shape != (n,) or not bool((res.prediction >= 0).all()):
+        raise AssertionError("malformed prediction result")
+    if not all(res.stage_counts[s] > 0 for s in ("exact", "fuzzy", "model")):
+        raise AssertionError(f"a stage matched no rows: {res.stage_counts}")
+    if accuracy < ACCURACY_FLOOR:
+        raise AssertionError(f"accuracy {accuracy:.4f} < {ACCURACY_FLOOR}")
+    return accuracy
+
+
+def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, need, label):
+    """One untimed and one timed predict; returns (matcher, result, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t = time.time()
+    matcher = Matcher(cfg, truth, model, device="cuda")
+    torch.cuda.synchronize()
+    phase(f"{label}_matcher_init", t)
+    t = time.time()
+    matcher.predict(queries)
+    torch.cuda.synchronize()
+    phase(f"{label}_predict_untimed", t)
+    reset_counts(counters)
+    if matcher.scorer.exact is not None:
+        matcher.scorer.exact.union_sizes.clear()
+    t = time.time()
+    res = matcher.predict(queries)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = read_counts(counters)
+    phase(f"{label}_predict_timed", t)
+    accuracy = check_prediction(res, actual, len(queries))
+    print(f"# {label} predict: {len(queries)} queries x {len(truth)} titles in {dt:.3f} s = "
+          f"{len(queries) / dt:.1f} q/s, accuracy {accuracy:.4f}", flush=True)
+    print(f"# {label} stage_counts {json.dumps(res.stage_counts)}", flush=True)
+    print(f"# {label} stage_seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})}", flush=True)
+    print(f"# {label} launches in the timed predict: {json.dumps(launches)}", flush=True)
+    print(f"# {label} peak device memory (Matcher init and both predicts): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, of which {resident / 1e9:.3f} GB "
+          f"were resident before", flush=True)
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched on the {label} path: {launches}")
+    return matcher, res, launches
+
+
 def main() -> int:
     t0 = time.time()
     import torch
@@ -160,9 +366,10 @@ def main() -> int:
     phase("device", t0)
 
     t = time.time()
-    path = _build.build()
+    paths = _build.build()
     _build.lib()
-    print(f"# built {os.path.relpath(path, ROOT)} in {_build.BUILD_SECONDS or 0.0:.1f} s", flush=True)
+    print(f"# built {len(paths)} libraries in {_build.BUILD_SECONDS or 0.0:.1f} s: "
+          f"{', '.join(os.path.relpath(p, ROOT) for p in paths.values())}", flush=True)
     phase("build", t)
 
     t = time.time()
@@ -171,79 +378,156 @@ def main() -> int:
     t = time.time()
     kb = check_kernel_b(torch, fk)
     phase("kernel_b", t)
+    t = time.time()
+    d = union_inputs(torch)
+    kc = check_kernel_c(torch, jk, d)
+    phase("kernel_c", t)
+    t = time.time()
+    kd = check_kernel_d(torch, jk, d)
+    phase("kernel_d", t)
+    t = time.time()
+    ke = check_kernel_e(torch, jk, d)
+    phase("kernel_e", t)
+    del d
+    torch.cuda.empty_cache()
 
     from doppelspeller_tpu_torch.config import Config
     from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.ops.ngram_index import build_packed_matrix, plan_query_blocks
     from doppelspeller_tpu_torch.pipeline import Matcher
     from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+    from doppelspeller_tpu_torch.utils.io import TitleSet
 
     model = GBTModel.load(MODEL)
     cfg0 = Config(data_path=os.path.join(ROOT, "data"))
+    counters = {"A": jk.score_window_select, "B": fk.window_best, "C": jk.gather_rows,
+                "D": jk.score_full, "E": jk.jaccard_topk_v1}
 
-    # ---- small world: card vs the plain CPU path ----
+    # ---- small worlds: card vs the plain CPU path ----
     t = time.time()
-    cfg_s = cfg0.with_(retrieval_mode="folded", score_dtype="float32")
-    _, truth_s, queries_s, _ = make_synthetic_world(4096, 512, seed=SEED, config=cfg_s)
-    r_cpu = Matcher(cfg_s, truth_s, model, device="cpu").predict(queries_s)
-    r_gpu = Matcher(cfg_s, truth_s, model, device="cuda").predict(queries_s)
-    same = (r_cpu.match_title_id == r_gpu.match_title_id) & (r_cpu.stage == r_gpu.stage)
-    print(f"# small world: card agrees with the plain CPU path on {int(same.sum())}/{len(same)} "
-          f"rows (tolerance: 99 %); max |pred diff| "
-          f"{float(abs(r_cpu.prediction - r_gpu.prediction)[same].max()):.2e}", flush=True)
-    if same.mean() < 0.99:
-        raise AssertionError("card and plain CPU path disagree on the small world")
-    phase("small_world", t)
+    engine = check_small_world(torch, Matcher, make_synthetic_world, model,
+                               cfg0.with_(retrieval_mode="folded", score_dtype="float32"), "f32")
+    assert engine == "folded"
+    engine = check_small_world(torch, Matcher, make_synthetic_world, model, cfg0, "default config")
+    if engine != "exact":
+        raise AssertionError("the default config did not resolve to exact retrieval at 4,096 titles")
+    phase("small_worlds", t)
 
-    # ---- main path ----
+    def packed_build_seconds(matcher):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        packed = build_packed_matrix(matcher.index, "cuda")
+        torch.cuda.synchronize()
+        sec = time.time() - t1
+        print(f"# packed index {tuple(packed.shape)} = {packed.numel() / 1e9:.3f} GB built on "
+              f"the card in {sec:.3f} s", flush=True)
+        return sec
+
+    # ---- folded main path: 500k titles ----
     t = time.time()
     cfg, truth, queries, actual = make_synthetic_world(N_TITLES, N_QUERIES, seed=SEED, config=cfg0)
-    phase("world", t)
-    t = time.time()
-    matcher = Matcher(cfg, truth, model, device="cuda")
-    torch.cuda.synchronize()
-    phase("matcher_init", t)
-    t = time.time()
-    matcher.predict(queries)
-    torch.cuda.synchronize()
-    phase("predict_untimed", t)
+    phase("folded_world", t)
+    folded, res, la = run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters,
+                                    ("A", "B"), "folded")
+    if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E")):
+        raise AssertionError(f"the 500k default config left the folded path: {la}")
 
-    jk.score_window_select.launches = 0
-    fk.window_best.launches = 0
+    # ---- exact main path: 150k titles ----
     t = time.time()
-    res = matcher.predict(queries)
+    cfg_x, truth_x, queries_x, actual_x = make_synthetic_world(N_TITLES_EXACT, N_QUERIES, seed=SEED,
+                                                               config=cfg0)
+    phase("exact_world", t)
+    exact, res_x, lx = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x, model,
+                                     counters, ("A", "B", "C"), "exact")
+    if exact.scorer.exact is None or lx["D"] or lx["E"]:
+        raise AssertionError(f"the 150k default config did not take exact retrieval with A: {lx}")
+    unions = dict(sorted(exact.scorer.exact.union_sizes.items()))
+    print(f"# exact union buckets in the timed predict (U: blocks): {json.dumps(unions)}", flush=True)
+    build_150k = packed_build_seconds(exact)
+    del exact
+    torch.cuda.empty_cache()
+
+    # ---- oracle anchor: the exact config on the 500k world's sample ----
+    t = time.time()
+    idx = np.arange(0, N_QUERIES, max(N_QUERIES // ORACLE_QUERIES, 1))[:ORACLE_QUERIES]
+    sample = TitleSet.from_titles([queries.titles[i] for i in idx], ids=queries.ids[idx], config=cfg)
+    cfg_o = cfg.with_(score_dtype="float32", topk_recall_target=1.0, model_depth_initial=0,
+                      retrieval_window_select=False, retrieval_mode="exact")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    oracle = Matcher(cfg_o, truth, model, device="cuda")
+    reset_counts(counters)
+    r_o = oracle.predict(sample)
     torch.cuda.synchronize()
-    dt = time.time() - t
-    launches = {"a": jk.score_window_select.launches, "b": fk.window_best.launches}
-    phase("predict_timed", t)
-    accuracy = float((res.match_title_id == actual).mean())
-    print(f"# predict: {N_QUERIES} queries x {N_TITLES} titles in {dt:.3f} s = "
-          f"{N_QUERIES / dt:.1f} q/s, accuracy {accuracy:.4f}", flush=True)
-    print(f"# stage_counts {json.dumps(res.stage_counts)}", flush=True)
-    print(f"# stage_seconds {json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})}",
-          flush=True)
-    print(f"# launches in the timed predict: kernel A {launches['a']}, kernel B {launches['b']}",
-          flush=True)
-    if res.match_title_id.shape != (N_QUERIES,) or not bool((res.prediction >= 0).all()):
-        raise AssertionError("malformed prediction result")
-    if not all(res.stage_counts[s] > 0 for s in ("exact", "fuzzy", "model")):
-        raise AssertionError(f"a stage matched no rows: {res.stage_counts}")
-    if launches["a"] == 0 or launches["b"] == 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-    if accuracy < ACCURACY_FLOOR:
-        raise AssertionError(f"accuracy {accuracy:.4f} < {ACCURACY_FLOOR}")
+    lo = read_counts(counters)
+    oracle_s = time.time() - t
+    acc_oracle = float((r_o.match_title_id == actual[idx]).mean())
+    acc_fast = float((res.match_title_id[idx] == actual[idx]).mean())
+    print(f"# oracle anchor: exact-config {acc_oracle:.4f} vs fast (folded) {acc_fast:.4f} on "
+          f"{len(idx)} sampled queries ({oracle_s:.3f} s, Matcher init included); stage_seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in r_o.stage_seconds.items()})}", flush=True)
+    print(f"# oracle launches: {json.dumps(lo)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, of which {resident / 1e9:.3f} GB "
+          f"(the folded Matcher) were resident before", flush=True)
+    if lo["C"] == 0 or lo["D"] == 0 or lo["A"] or lo["E"]:
+        raise AssertionError(f"the oracle config did not run C then D: {lo}")
+    if acc_fast < acc_oracle - ORACLE_DELTA:
+        raise AssertionError(f"fast accuracy {acc_fast:.4f} < oracle {acc_oracle:.4f} - {ORACLE_DELTA}")
+    build_500k = packed_build_seconds(oracle)
+    phase("oracle", t)
+
+    # ---- v1 path: the sample's retrieval through kernel E ----
+    t = time.time()
+    k = cfg.top_n_predicting
+    engine = oracle.scorer.exact
+    plans = plan_query_blocks(sample, oracle.index, cfg_o)
+    reset_counts(counters)
+    v1 = []
+    for p in plans:
+        uid, w_pos, w_val, bound = (torch.from_numpy(a).to("cuda") for a in
+                                    (p.union_ids, p.w_pos, p.w_val, p.max_intersection))
+        v1.append(jk.jaccard_topk_v1(engine.packed, engine.sums, uid, w_pos, w_val, bound,
+                                     engine.nt, k=k, tb=engine.tb, score_dtype=cfg_o.score_dtype))
+    torch.cuda.synchronize()
+    lv = read_counts(counters)
+    v2 = [engine.topk_block(p, k) for p in plans]
+    n_sep = n_bad = 0
+    for (va, pa), (vb, pb), p in zip(v1, v2, plans):
+        va, pa, vb, pb = (x[: p.n_valid] for x in (va, pa, vb, pb))
+        # the v1 entry takes the planner's bound (summed in float64), the
+        # main path the device's float32 sum: scores agree to rounding
+        torch.testing.assert_close(va, vb, rtol=1e-5, atol=1e-7)
+        sep = jk.untied_slots(vb, 1e-6)
+        n_sep += int(sep.sum())
+        n_bad += int((pa[sep] != pb[sep]).sum())
+    print(f"# v1 path: {len(plans)} blocks; top-{k} titles equal to kernel D's on "
+          f"{n_sep - n_bad}/{n_sep} untied slots; launches {json.dumps(lv)}", flush=True)
+    if n_bad or lv["E"] != len(plans) or lv["C"] != len(plans):
+        raise AssertionError(f"the v1 path disagrees with kernel D or did not launch E: {lv}")
+    phase("v1_path", t)
+
+    def entry(name, key, source, replaces, path, counts, stats, **extra):
+        return {"name": name, "route": "cuda", "source": f"doppelspeller_tpu_torch/csrc/{source}",
+                "replaces": f"doppelspeller_tpu/ops/{replaces}", "launches": counts[key],
+                "path": path, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "plain_ms": stats["plain_ms"], **extra}
 
     kernels = [
-        {"name": "score_window_select", "route": "cuda",
-         "source": "doppelspeller_tpu_torch/csrc/score_window.cu",
-         "replaces": "doppelspeller_tpu/ops/jaccard_pallas.py:263",
-         "launches": launches["a"], "max_abs_err": ka["max_abs_err"],
-         "ms": ka["ms"], "plain_ms": ka["plain_ms"]},
-        {"name": "window_best", "route": "cuda",
-         "source": "doppelspeller_tpu_torch/csrc/window_lcs.cu",
-         "replaces": "doppelspeller_tpu/ops/features_pallas.py:53",
-         "launches": launches["b"], "max_abs_err": kb["max_abs_err"],
-         "ms": kb["ms"], "plain_ms": kb["plain_ms"]},
+        entry("score_window_select", "A", "score_window.cu", "jaccard_pallas.py:263",
+              "folded main path (500k); exact main path (150k) launched it "
+              f"{lx['A']} times", la, ka,
+              **{k: ka[k] for k in ("max_abs_err_folds1", "ms_folds1", "plain_ms_folds1")}),
+        entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
+              "folded main path (500k)", la, kb),
+        entry("gather_rows", "C", "gather_rows.cu", "jaccard_pallas.py:29",
+              "exact main path (150k)", lx, kc),
+        entry("score_full", "D", "score_full.cu", "jaccard_pallas.py:210",
+              "oracle anchor (500k, 6,000 queries)", lo, kd),
+        entry("jaccard_topk_v1", "E", "score_full.cu", "jaccard_pallas.py:135",
+              "v1 path (the oracle sample's retrieval)", lv, ke),
     ]
+    print(f"# packed index build: {build_150k:.3f} s at {N_TITLES_EXACT} titles, "
+          f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

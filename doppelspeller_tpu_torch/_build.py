@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, bound with
-``ctypes``.  The library lives in ``build/torch_kernels/`` at the repository
-root, named by a hash of the sources, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is.
+Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface, bound
+with ``ctypes``; the ``nvcc`` processes run side by side.  The libraries
+live in ``build/torch_kernels/`` at the repository root, each named by a
+hash of its source (and the shared headers), so an edited kernel is rebuilt
+and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from types import SimpleNamespace
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -26,18 +28,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# entry point -> (source file, argument types)
 _SIGNATURES = {
-    "doppel_score_window_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   ctypes.c_longlong, _I, _I, _I, _I, _P],
-    "doppel_window_best": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "doppel_score_window_select": ("score_window.cu",
+                                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I, _P]),
+    "doppel_window_best": ("window_lcs.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "doppel_gather_rows": ("gather_rows.cu", [_P, _P, _P, _I, _L, _P]),
+    "doppel_score_full": ("score_full.cu", [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
 }
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[SimpleNamespace] = None
 BUILD_SECONDS: Optional[float] = None
 
 
-def sources() -> list:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+def sources() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -50,45 +56,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libdoppel_kernels_{h.hexdigest()[:16]}.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the library if it is missing; returns its path."""
+def build() -> Dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together; returns {source file name: library path}."""
     global BUILD_SECONDS
-    out = library_path()
-    if os.path.exists(out):
-        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cu = [p for p in sources() if p.endswith(".cu")]
+    out = {os.path.basename(src): library_path(src) for src in sources()}
+    todo = {src: out[os.path.basename(src)] for src in sources()
+            if not os.path.exists(out[os.path.basename(src)])}
+    if not todo:
+        return out
     t0 = time.time()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs = []
+    for src, lib_path in todo.items():
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        procs.append((src, lib_path, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, lib_path, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     BUILD_SECONDS = time.time() - t0
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> SimpleNamespace:
+    """Every kernel entry point as an attribute (built on first call)."""
     global _LIB
     if _LIB is None:
-        handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
+        paths = build()
+        handles = {name: ctypes.CDLL(path) for name, path in paths.items()}
+        fns = {}
+        for name, (source, argtypes) in _SIGNATURES.items():
+            fn = getattr(handles[source], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIB = handle
+            fns[name] = fn
+        _LIB = SimpleNamespace(**fns)
     return _LIB
 
 

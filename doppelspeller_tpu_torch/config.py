@@ -8,9 +8,8 @@ stay interchangeable, and the port ignores them:
 
 ``window_impl``, ``retrieval_impl``, ``index_build_impl``,
 ``topk_recall_target``, ``fold_recall_target`` (the port's top-k is exact),
-``max_query_trigrams``, ``union_buckets``, ``dispatch_blocks``,
-``pallas_union_chunk``, ``pair_block``, ``rerank_chunk_cap``, ``mesh_axis``,
-``serve_fused``.
+``dispatch_blocks``, ``pallas_union_chunk``, ``pair_block``,
+``rerank_chunk_cap``, ``mesh_axis``, ``serve_fused``.
 """
 
 from __future__ import annotations
@@ -92,11 +91,11 @@ class Config:
     score_dtype: str = "bfloat16"
     window_impl: str = "auto"            # ignored by the port
     retrieval_impl: str = "auto"         # ignored by the port
-    # fused per-window pre-selection inside the coarse kernel (the port
-    # implements only the windowed select, which is the default)
+    # fused per-window pre-selection in the scoring kernel (kernel A); off,
+    # the exact path scores the full matrix (kernel D) and takes its top-k
     retrieval_window_select: bool = True
-    # "auto" → folded at >= folded_min_titles titles, "folded" forces it;
-    # the exact path is not ported yet and raises NotImplementedError
+    # "auto" → folded at >= folded_min_titles titles (given the truth
+    # encodings), exact below; "folded" and "exact" force one engine
     retrieval_mode: str = "auto"
     fold_dim: int = 512
     fold_hashes: int = 2

@@ -1,47 +1,110 @@
 """Retrieval: top-k IDF-weighted Jaccard candidates per query.
 
-The JAX package's ``JaccardScorer`` for its folded engine (``ops/fold.py``).
-The exact union path is not ported yet (ROADMAP queue 1): a configuration
-that resolves to it raises ``NotImplementedError`` rather than running
-anything else.
+The JAX package's ``JaccardScorer`` with both of its engines:
+
+- **exact** (``ExactEngine``, the JAX ``_topk_multiblock`` with
+  ``impl="pallas"``): per block of ``query_block`` queries, the union of
+  their trigram ids is gathered from the packed index (kernel C), then
+  scored either with the per-window pre-selection (kernel A, ``folds=1``;
+  ``retrieval_window_select``, the default) or as the full matrix (kernel
+  D) followed by an exact top-k.  ``"exact"`` takes it at any size,
+  ``"auto"`` below ``folded_min_titles`` or when no truth encodings are
+  given;
+- **folded** (``ops/fold.py``): ``"folded"``, and ``"auto"`` at or above
+  ``folded_min_titles`` titles.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional, Tuple
+from collections import Counter
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
+from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
 from doppelspeller_tpu_torch.ops.fold import FoldedEngine, plan_id_blocks
-from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex
+from doppelspeller_tpu_torch.ops.ngram_index import (
+    QueryBlockPlan,
+    TruthIndex,
+    build_packed_matrix,
+    plan_query_blocks,
+)
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
 LOGGER = logging.getLogger(__name__)
 
 
-class JaccardScorer:
-    """Device-resident retrieval engine over a TruthIndex."""
+class ExactEngine(nn.Module):
+    """Device-resident exact-retrieval state: the packed (V, ntp/8) index,
+    the IDF tables and the per-title sums."""
 
-    def __init__(self, index: TruthIndex, config: Config, device, truth: TitleSet):
+    def __init__(self, index: TruthIndex, cfg: Config, device, tb: int):
+        super().__init__()
+        self.cfg = cfg
+        self.tb = tb
+        self.nt = index.num_titles
+        self.register_buffer("packed", build_packed_matrix(index, device))
+        self.register_buffer("idf", torch.from_numpy(index.idf).to(device))
+        self.register_buffer("fb", torch.from_numpy(index.fallback_idf()).to(device))
+        self.register_buffer("sums", torch.from_numpy(index.sums).to(device))
+        self.union_sizes: Counter = Counter()     # blocks scored, by union size
+        LOGGER.info("[ExactEngine] packed index %.2f GB, tb=%d", self.packed.numel() / 1e9, tb)
+
+    def topk_block(self, plan: QueryBlockPlan, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k (scores f32, title positions i32) of one plan's block.
+
+        Weights and the max-intersection bound are rebuilt from the resident
+        tables as the reference does on the device: w_val = (idf[union] ‖
+        0)[min(w_pos, U)] and maxint = Σ (fb[union] ‖ 0)[min(w_pos, U)] in
+        f32, slot U standing for a query's unused trigram slots.  The
+        union's own padding rows (id 0) get no weight."""
+        dev = self.packed.device
+        uid = torch.from_numpy(plan.union_ids).to(dev).to(torch.int64)
+        u = uid.shape[0]
+        self.union_sizes[u] += 1
+        wp = torch.from_numpy(plan.w_pos).to(dev).to(torch.int64).clamp(max=u)
+        zero = torch.zeros(1, dtype=torch.float32, device=dev)
+        w_val = torch.cat([self.idf[uid], zero])[wp]
+        maxint = torch.cat([self.fb[uid], zero])[wp].sum(dim=1)
+        w = jk.densify_weights(wp, w_val, u)
+        rows = jk.gather_rows(self.packed, uid)
+        sd = self.cfg.score_dtype
+        if self.cfg.retrieval_window_select:
+            W = max(self.tb // 128, 1)
+            wmax, warg = jk.score_window_select(rows, w, self.sums, maxint, self.nt,
+                                                tb=self.tb, W=W, folds=1, score_dtype=sd)
+            return jk.select_topk_windowed(wmax, warg, k)
+        jacc = jk.score_full(rows, w, self.sums, maxint, self.nt, tb=self.tb, score_dtype=sd)
+        return jk.select_topk_permuted(jacc, k, self.tb)
+
+
+class JaccardScorer:
+    """Device-resident retrieval engine over a TruthIndex.  ``truth`` (the
+    encodings) is needed by the folded engine only."""
+
+    def __init__(self, index: TruthIndex, config: Config, device,
+                 truth: Optional[TitleSet] = None):
         self.cfg = config
         self.index = index
         self.device = resolve_device(device)
         mode = config.retrieval_mode
+        if mode not in ("auto", "exact", "folded"):
+            raise ValueError(f"unknown retrieval_mode {mode!r}")
         folded = mode == "folded" or (
-            mode == "auto" and index.num_titles >= config.folded_min_titles
+            mode == "auto" and truth is not None
+            and index.num_titles >= config.folded_min_titles
         )
-        if not folded:
-            raise NotImplementedError(
-                f"retrieval_mode={mode!r} at {index.num_titles} titles resolves to the "
-                "exact retrieval path, which the PyTorch port does not have yet "
-                "(ROADMAP queue 1: exact retrieval, kernel A with row ids)"
-            )
+        if folded and truth is None:
+            raise ValueError("retrieval_mode='folded' needs the truth TitleSet "
+                             "(encodings): pass truth= to JaccardScorer")
         tb = 2048 if index.padded_titles % 2048 == 0 else config.title_block
-        self.folded = FoldedEngine(index, truth, config, self.device, tb)
+        self.folded = FoldedEngine(index, truth, config, self.device, tb) if folded else None
+        self.exact = None if folded else ExactEngine(index, config, self.device, tb)
 
     def topk_device(self, queries: TitleSet, k: Optional[int] = None,
                     rows: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,18 +114,27 @@ class JaccardScorer:
         k = k or self.cfg.top_n_predicting
         if self.index.num_titles < k:
             raise ValueError(f"index has {self.index.num_titles} titles < k={k}")
-        plans = plan_id_blocks(queries, self.cfg, rows=rows)
-        if not plans:
+        vals: List[torch.Tensor] = []
+        pos: List[torch.Tensor] = []
+        if self.exact is not None:
+            # plans keep the order of ``rows`` (overflowing blocks split in order)
+            for p in plan_query_blocks(queries, self.index, self.cfg, rows=rows):
+                v, ps = self.exact.topk_block(p, k)
+                vals.append(v[: p.n_valid])
+                pos.append(ps[: p.n_valid])
+        else:
+            plans = plan_id_blocks(queries, self.cfg, rows=rows)
+            if plans:
+                ids = torch.from_numpy(np.concatenate([p.ids for p in plans])).to(self.device)
+                ids = ids.to(torch.int64)
+                qb = plans[0].ids.shape[0]
+                for j, p in enumerate(plans):
+                    v, ps = self.folded.topk_block(ids[j * qb : (j + 1) * qb], k)
+                    vals.append(v[: p.n_valid])
+                    pos.append(ps[: p.n_valid])
+        if not vals:
             empty = torch.zeros((0, k), device=self.device)
             return empty, empty.to(torch.int32)
-        ids = torch.from_numpy(np.concatenate([p.ids for p in plans])).to(self.device)
-        ids = ids.to(torch.int64)
-        qb = plans[0].ids.shape[0]
-        vals, pos = [], []
-        for j, p in enumerate(plans):
-            v, ps = self.folded.topk_block(ids[j * qb : (j + 1) * qb], k)
-            vals.append(v[: p.n_valid])
-            pos.append(ps[: p.n_valid])
         return torch.cat(vals), torch.cat(pos)
 
     def topk(self, queries: TitleSet, k: Optional[int] = None,

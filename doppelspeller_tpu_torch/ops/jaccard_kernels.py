@@ -1,32 +1,42 @@
-"""Kernel A: folded coarse scoring with the fused per-window pre-selection.
+"""Retrieval kernels: A (window select), C (row gather), D (full matrix) and
+E (the v1 entry over D's kernel).
 
-``score_window_select`` launches the CUDA kernel ``csrc/score_window.cu`` on
-CUDA tensors and runs ``score_window_select_plain`` on CPU tensors; there is
-no other route.  Both replace the TPU kernel
-``doppelspeller_tpu/ops/jaccard_pallas.py::_score_kernel_v3``.
+Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
+PyTorch version on CPU tensors; there is no other route.  They replace the
+TPU kernels of ``doppelspeller_tpu/ops/jaccard_pallas.py``:
+
+- A ``score_window_select`` (``csrc/score_window.cu``) ↔ ``_score_kernel_v3``:
+  scores fused with the per-window pre-selection; ``folds=2`` on the
+  folded path, ``folds=1`` on gathered union rows on the exact path.
+- C ``gather_rows`` (``csrc/gather_rows.cu``) ↔ ``_gather_rows_kernel``.
+- D ``score_full`` (``csrc/score_full.cu``) ↔ ``_score_kernel_v2``: the full
+  (QB, ntp) Jaccard matrix, bf16 out when scoring in bf16, else f32.
+- E ``jaccard_topk_v1`` ↔ ``_score_kernel`` (``jaccard_topk_pallas``):
+  sparse weights densified, gathered through C, D's kernel with f32 out.
 
 Titles are stored in natural order (bit t % 8 of byte t // 8), not in the
-TPU kernel's per-tile permutation, but the window grouping is the
-reference's: window s of a tile holds offsets o < W, offset o being
-tile-local title 8·((o·S+s) mod nb) + (o·S+s) div nb (nb = tb/8,
-S = tb/W).  Which per-window runner-ups are dropped, and so which titles
-reach the rescore, depends on that grouping.
+TPU kernels' per-tile permutation π, but every choice that depends on π is
+the reference's.  Kernel A groups windows as the reference does: window s
+of a tile holds offsets o < W, offset o being tile-local title
+8·((o·S+s) mod nb) + (o·S+s) div nb (nb = tb/8, S = tb/W), and which
+runner-ups each window drops decides which titles reach the next stage.
+Kernel D writes its columns in π order (column c of a tile holds title
+8·(c mod nb) + c div nb), and its top-k breaks ties toward the lower
+column, as the reference's does.
 
-The top-k over the window maxima (``select_topk_windowed``) is exact with
-ties to the lower window index.  The TPU reference used ``approx_max_k``;
-off the TPU that call is an exact stable top-k, so the port is exact
-everywhere.
+Both top-k selects are exact.  The TPU reference used ``approx_max_k``; off
+the TPU that call is an exact top-k, so the port is exact everywhere.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 
 from doppelspeller_tpu_torch import _build
 
-# titles per chunk of the plain version (bounds its (U, chunk) unpacked bits)
+# titles per chunk of the plain versions (bounds their (U, chunk) unpacked bits)
 _PLAIN_CHUNK = 1 << 16
 
 
@@ -49,6 +59,61 @@ def window_titles(tb: int, W: int, device=None) -> torch.Tensor:
     return 8 * (c % nb) + c // nb
 
 
+def unpermute_positions(cols: torch.Tensor, tb: int) -> torch.Tensor:
+    """Title of each π column (the inverse of D's column order)."""
+    nb = tb // 8
+    c = cols % tb
+    return cols - c + 8 * (c % nb) + c // nb
+
+
+def _jaccard_chunks(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+                    maxint: torch.Tensor, nt: int, tb: int,
+                    folds: int) -> Iterator[Tuple[int, torch.Tensor]]:
+    """(t0, jacc f32 (QB, n)) over chunks of whole tiles, natural title
+    order: the plain versions' bit unpack, f32 matmuls (min over folds) and
+    Jaccard normalisation."""
+    U, nbytes = rows_u8.shape
+    ntp = nbytes * 8
+    C = U // folds
+    dev = rows_u8.device
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    chunk = max((_PLAIN_CHUNK // tb) * tb, tb)
+    for t0 in range(0, ntp, chunk):
+        t1 = min(t0 + chunk, ntp)
+        bits = ((rows_u8[:, t0 // 8 : t1 // 8, None] >> shifts) & 1)
+        bits = bits.reshape(U, t1 - t0).to(torch.float32)
+        num = None
+        for f in range(folds):
+            part = w[:, f * C : (f + 1) * C] @ bits[f * C : (f + 1) * C]
+            num = part if num is None else torch.minimum(num, part)
+        denom = (sums[None, t0:t1] + maxint[:, None]) - num
+        jacc = num / torch.clamp(denom, min=1e-9)
+        tpos = torch.arange(t0, t1, device=dev)
+        yield t0, torch.where(tpos[None, :] < nt, jacc, torch.full_like(jacc, -1.0))
+
+
+def _check_score_inputs(rows_u8, w, sums, maxint, folds: int = 1) -> None:
+    U, nbytes = rows_u8.shape
+    if rows_u8.dtype != torch.uint8 or w.dtype != torch.float32:
+        raise TypeError("rows_u8 must be uint8 and w float32")
+    if w.shape[1] != U or U % folds or sums.shape != (nbytes * 8,) or maxint.shape != (w.shape[0],):
+        raise ValueError(f"shape mismatch: rows {tuple(rows_u8.shape)}, w {tuple(w.shape)}, "
+                         f"sums {tuple(sums.shape)}, maxint {tuple(maxint.shape)}")
+
+
+def _check_launch(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name} runs on CUDA tensors, not {dev}")
+    if any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} inputs must be contiguous and on one device")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} inputs must be 16-byte aligned")
+    return dev
+
+
+# ---------------------------------------------------------------- kernel A
+
 def score_window_select_plain(
     rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor, maxint: torch.Tensor,
     nt: int, *, tb: int, W: int, folds: int,
@@ -57,31 +122,14 @@ def score_window_select_plain(
 
     rows_u8 u8 (U, ntp/8), w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,).
     Returns (wmax f32 (QB, ntp/W), warg_title i32 (QB, ntp/W))."""
-    U, nbytes = rows_u8.shape
-    ntp = nbytes * 8
-    C = U // folds
     QB = w.shape[0]
     S = tb // W
     dev = rows_u8.device
-    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
     local = window_titles(tb, W, dev)                       # (W, S)
     s_idx = torch.arange(S, device=dev)
-    chunk = max((_PLAIN_CHUNK // tb) * tb, tb)
     wmax_parts, warg_parts = [], []
-    for t0 in range(0, ntp, chunk):
-        t1 = min(t0 + chunk, ntp)
-        n = t1 - t0
-        bits = ((rows_u8[:, t0 // 8 : t1 // 8, None] >> shifts) & 1)
-        bits = bits.reshape(U, n).to(torch.float32)
-        num = None
-        for f in range(folds):
-            part = w[:, f * C : (f + 1) * C] @ bits[f * C : (f + 1) * C]
-            num = part if num is None else torch.minimum(num, part)
-        denom = (sums[None, t0:t1] + maxint[:, None]) - num
-        jacc = num / torch.clamp(denom, min=1e-9)
-        tpos = torch.arange(t0, t1, device=dev)
-        jacc = torch.where(tpos[None, :] < nt, jacc, torch.full_like(jacc, -1.0))
-        n_tiles = n // tb
+    for t0, jacc in _jaccard_chunks(rows_u8, w, sums, maxint, nt, tb, folds):
+        n_tiles = jacc.shape[1] // tb
         # (QB, tiles, W, S): score of offset o in window s of each tile
         jw = jacc.reshape(QB, n_tiles, tb)[:, :, local]
         m = jw.max(dim=2).values                             # (QB, tiles, S)
@@ -97,39 +145,29 @@ def score_window_select(
     rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor, maxint: torch.Tensor,
     nt: int, *, tb: int, W: int, folds: int, score_dtype: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coarse folded scores reduced per window.
+    """Scores reduced per window.
 
-    rows_u8 u8 (folds·C, ntp/8) stacked folded occupancy bits, w f32 (QB,
-    folds·C) folded weights, sums f32 (ntp,), maxint f32 (QB,), nt real
-    titles.  Returns (wmax f32 (QB, ntp/W), warg_title i32 (QB, ntp/W)):
-    window g = tile·S + s holds its max score and the global title of the
-    first offset reaching it.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    rows_u8 u8 (folds·C, ntp/8): stacked folded occupancy bits (folded
+    path) or gathered union rows with folds=1 (exact path); w f32 (QB,
+    folds·C) weights, sums f32 (ntp,), maxint f32 (QB,), nt real titles.
+    Returns (wmax f32 (QB, ntp/W), warg_title i32 (QB, ntp/W)): window
+    g = tile·S + s holds its max score and the global title of the first
+    offset reaching it.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     U, nbytes = rows_u8.shape
     ntp = nbytes * 8
     QB = w.shape[0]
-    if rows_u8.dtype != torch.uint8 or w.dtype != torch.float32:
-        raise TypeError("rows_u8 must be uint8 and w float32")
-    if w.shape[1] != U or U % folds or sums.shape != (ntp,) or maxint.shape != (QB,):
-        raise ValueError(f"shape mismatch: rows {tuple(rows_u8.shape)}, w {tuple(w.shape)}, "
-                         f"sums {tuple(sums.shape)}, maxint {tuple(maxint.shape)}")
+    _check_score_inputs(rows_u8, w, sums, maxint, folds)
     if ntp % tb or tb % W:
         raise ValueError(f"title count {ntp} / tile {tb} / window {W} do not divide")
     wr = round_weights(w, score_dtype)
-    dev = rows_u8.device
-    if dev.type == "cpu":
+    if rows_u8.device.type == "cpu":
         return score_window_select_plain(rows_u8, wr, sums, maxint, nt, tb=tb, W=W, folds=folds)
-    if dev.type != "cuda":
-        raise RuntimeError(f"kernel A runs on CUDA tensors, not {dev}")
     if tb != 128 * W or W not in (1, 2, 4, 8, 16):
         raise ValueError(f"kernel A takes tb = 128·W with W in 1..16, got tb={tb} W={W}")
-    tensors = (rows_u8, wr, sums, maxint)
-    if any(t.device != dev or not t.is_contiguous() for t in tensors):
-        raise ValueError("kernel A inputs must be contiguous and on one device")
+    dev = _check_launch("kernel A", rows_u8, wr, sums, maxint)
     if sums.dtype != torch.float32 or maxint.dtype != torch.float32:
         raise TypeError("sums and maxint must be float32")
-    if rows_u8.data_ptr() % 16:
-        raise ValueError("rows_u8 must be 16-byte aligned")
     wmax = torch.empty((QB, ntp // W), dtype=torch.float32, device=dev)
     warg = torch.empty((QB, ntp // W), dtype=torch.int32, device=dev)
     if QB == 0:
@@ -154,3 +192,169 @@ def select_topk_windowed(wmax: torch.Tensor, warg_title: torch.Tensor, k: int):
     vals, order = torch.sort(wmax, dim=1, descending=True, stable=True)
     order = order[:, :k]
     return vals[:, :k], torch.gather(warg_title, 1, order)
+
+
+# ---------------------------------------------------------------- kernel C
+
+def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel C."""
+    return torch.index_select(src, 0, ids.to(torch.int64))
+
+
+def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """src u8 (V, nbytes), ids (U,) row ids in [0, V) → u8 (U, nbytes).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if src.dtype != torch.uint8 or src.dim() != 2 or ids.dim() != 1:
+        raise TypeError("gather_rows takes a 2-D uint8 matrix and 1-D ids")
+    if src.device.type == "cpu":
+        return gather_rows_plain(src, ids)
+    ids32 = ids.to(torch.int32).contiguous()
+    dev = _check_launch("kernel C", src, ids32)
+    U, nbytes = ids32.shape[0], src.shape[1]
+    if nbytes % 16:
+        raise ValueError(f"kernel C takes rows of a multiple of 16 bytes, got {nbytes}")
+    out = torch.empty((U, nbytes), dtype=torch.uint8, device=dev)
+    if U == 0:
+        return out
+    rc = _build.lib().doppel_gather_rows(src.data_ptr(), ids32.data_ptr(), out.data_ptr(), U,
+                                         nbytes, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "doppel_gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------- kernel D
+
+def score_full_plain(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+                     maxint: torch.Tensor, nt: int, *, tb: int,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of kernel D (weights already rounded): the
+    (QB, ntp) Jaccard matrix in π column order, rounded to ``out_dtype``."""
+    QB = w.shape[0]
+    ntp = rows_u8.shape[1] * 8
+    out = torch.empty((QB, ntp), dtype=out_dtype, device=rows_u8.device)
+    for t0, jacc in _jaccard_chunks(rows_u8, w, sums, maxint, nt, tb, 1):
+        n = jacc.shape[1]
+        # tile-local title 8·b + s → column s·nb + b
+        out[:, t0 : t0 + n] = jacc.reshape(QB, n // tb, tb // 8, 8).transpose(2, 3).reshape(QB, n)
+    return out
+
+
+def score_out_dtype(score_dtype: str) -> torch.dtype:
+    """D's output type: bf16 scores when scoring in bf16, else f32."""
+    return torch.bfloat16 if score_dtype == "bfloat16" else torch.float32
+
+
+def _score_full(rows_u8, w, sums, maxint, nt, tb, score_dtype, out_dtype, entry):
+    """D's checks and routes: the plain version on CPU tensors, the kernel
+    on CUDA tensors, counted on ``entry`` (the public wrapper called)."""
+    U, nbytes = rows_u8.shape
+    QB = w.shape[0]
+    _check_score_inputs(rows_u8, w, sums, maxint)
+    if (nbytes * 8) % tb or tb % 8:
+        raise ValueError(f"title count {nbytes * 8} / tile {tb} do not divide")
+    wr = round_weights(w, score_dtype)
+    if rows_u8.device.type == "cpu":
+        return score_full_plain(rows_u8, wr, sums, maxint, nt, tb=tb, out_dtype=out_dtype)
+    dev = _check_launch("kernel D", rows_u8, wr, sums, maxint)
+    if sums.dtype != torch.float32 or maxint.dtype != torch.float32:
+        raise TypeError("sums and maxint must be float32")
+    if nbytes % 16:
+        raise ValueError(f"kernel D takes rows of a multiple of 16 bytes, got {nbytes}")
+    out = torch.empty((QB, nbytes * 8), dtype=out_dtype, device=dev)
+    if QB == 0:
+        return out
+    rc = _build.lib().doppel_score_full(
+        rows_u8.data_ptr(), wr.data_ptr(), sums.data_ptr(), maxint.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), QB, nbytes, U, tb, int(nt),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "doppel_score_full")
+    entry.launches += 1
+    return out
+
+
+def score_full(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+               maxint: torch.Tensor, nt: int, *, tb: int, score_dtype: str) -> torch.Tensor:
+    """The full Jaccard matrix of gathered union rows: rows_u8 u8 (U,
+    ntp/8), w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp)
+    in π column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    return _score_full(rows_u8, w, sums, maxint, nt, tb, score_dtype,
+                       score_out_dtype(score_dtype), score_full)
+
+
+score_full.launches = 0
+
+
+def select_topk_permuted(jacc: torch.Tensor, k: int, tb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a π-ordered score matrix (f32 or bf16), ties to the
+    lower column (the order the reference's blockwise ``lax.top_k`` merge
+    gives), mapped back to titles.  Returns (vals f32 (QB, k), titles i32
+    (QB, k)).
+
+    The f32 bits of each score become an order-preserving int32; with the
+    complement of the column below them they make unique int64 keys, so a
+    plain top-k over the keys is exact and fixes the order of ties."""
+    ntp = jacc.shape[1]
+    bits = jacc.to(torch.float32).view(torch.int32)
+    mono = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    low = 0xFFFFFFFF - torch.arange(ntp, device=jacc.device, dtype=torch.int64)
+    key = mono.to(torch.int64) * (1 << 32) + low[None, :]
+    cols = 0xFFFFFFFF - (torch.topk(key, k, dim=1).values & 0xFFFFFFFF)
+    vals = torch.gather(jacc, 1, cols).to(torch.float32)
+    return vals, unpermute_positions(cols, tb).to(torch.int32)
+
+
+def untied_slots(vals: torch.Tensor, eps: float) -> torch.Tensor:
+    """bool (QB, k): top-k slots (scores sorted descending) whose score
+    differs from both neighbours by more than ``eps``, so that no summation
+    order can change the title there.  The last slot's successor is not
+    seen, so it never counts.  Two top-k results are held to equal titles
+    on these slots."""
+    gap = (vals[:, :-1] - vals[:, 1:]) > eps
+    sep = torch.zeros_like(vals, dtype=torch.bool)
+    sep[:, 1:-1] = gap[:, :-1] & gap[:, 1:]
+    sep[:, 0] = gap[:, 0]
+    return sep
+
+
+# ---------------------------------------------------------------- kernel E
+
+def densify_weights(w_pos: torch.Tensor, w_val: torch.Tensor, union_size: int) -> torch.Tensor:
+    """Sparse (positions into the union, values) → dense f32 (QB, U) weights:
+    a set, not an add; position ``union_size`` is the padding slot (dropped)."""
+    qb = w_pos.shape[0]
+    w = torch.zeros((qb, union_size + 1), dtype=torch.float32, device=w_val.device)
+    w.scatter_(1, w_pos.to(torch.int64), w_val.to(torch.float32))
+    return w[:, :union_size].contiguous()
+
+
+def jaccard_topk_v1_plain(packed, sums, union_ids, w_pos, w_val, maxint, nt, *, k: int, tb: int,
+                          score_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel E."""
+    w = round_weights(densify_weights(w_pos, w_val, union_ids.shape[0]), score_dtype)
+    rows = gather_rows_plain(packed, union_ids)
+    jacc = score_full_plain(rows, w, sums, maxint, nt, tb=tb, out_dtype=torch.float32)
+    return select_topk_permuted(jacc, k, tb)
+
+
+def jaccard_topk_v1(packed: torch.Tensor, sums: torch.Tensor, union_ids: torch.Tensor,
+                    w_pos: torch.Tensor, w_val: torch.Tensor, maxint: torch.Tensor, nt: int,
+                    *, k: int, tb: int, score_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's v1 retrieval step: packed u8 (V, ntp/8), sums f32
+    (ntp,), union_ids (U,), w_pos (QB, LQ) positions into the union (U =
+    padding), w_val f32 (QB, LQ), maxint f32 (QB,) → exact top-k (scores
+    f32 (QB, k), titles i32 (QB, k)).  Scores are f32 whatever
+    ``score_dtype`` (which rounds the weights).  CPU tensors take the plain
+    versions; CUDA tensors gather through kernel C and launch D's kernel."""
+    w = densify_weights(w_pos, w_val, union_ids.shape[0])
+    jacc = _score_full(gather_rows(packed, union_ids), w, sums, maxint, nt, tb, score_dtype,
+                       torch.float32, jaccard_topk_v1)
+    return select_topk_permuted(jacc, k, tb)
+
+
+jaccard_topk_v1.launches = 0

@@ -1,15 +1,20 @@
-"""Truth-index statistics: trigram document frequencies, IDF, per-title sums.
+"""The truth-title trigram index and the exact path's query-block planner.
 
-The JAX package's ``TruthIndex`` without its bit-packed (V, ntp/8) occupancy
-matrix: the folded retrieval path never reads it (it builds its own folded
-matrix, ``ops/fold.py``), and at 500k titles it would take 3.2 GB.
+The JAX package's ``ops/ngram_index.py``.  ``TruthIndex`` holds the
+statistics every retrieval path reads (document frequencies, IDF, per-title
+sums) and the per-title trigram ids.  The bit-packed (V, ntp/8) occupancy
+matrix is built only when the exact retrieval engine asks for it
+(``build_packed_matrix``): at 500k titles it takes 3.3 GB, and the folded
+path never reads it (it builds its own folded matrix, ``ops/fold.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE, Config
 from doppelspeller_tpu_torch.utils import text as T
@@ -29,6 +34,8 @@ class TruthIndex:
     num_titles: int         # nt
     padded_titles: int      # ntp, a multiple of title_block
     max_idf: float          # fallback IDF for query trigrams absent in truth
+    trigrams: np.ndarray    # int32[nt, W] per-title sorted unique trigram ids,
+                            #   BIG_TRIGRAM in unused slots
 
     @property
     def vocab_size(self) -> int:
@@ -55,5 +62,108 @@ def build_truth_index(truth: TitleSet, config: Config) -> TruthIndex:
     sums[:nt] = w.sum(axis=1).astype(np.float32)
     return TruthIndex(
         idf=idf, df=df, sums=sums, title_ids=truth.ids.copy(), num_titles=nt,
-        padded_titles=ntp, max_idf=max_idf,
+        padded_titles=ntp, max_idf=max_idf, trigrams=ids,
     )
+
+
+def build_packed_matrix(index: TruthIndex, device) -> torch.Tensor:
+    """uint8[V, ntp/8] on ``device``: bit t % 8 of byte t // 8 in row g is
+    set when title t holds trigram g (natural title order).
+
+    A title's trigram ids are unique, so within one bit plane (titles with
+    the same t % 8) every (row, byte) pair is written once: eight
+    gather-or-scatter passes, with no scratch beyond the matrix itself."""
+    ntp = index.padded_titles
+    nbytes = ntp // 8
+    ids = torch.from_numpy(index.trigrams).to(device)
+    t = torch.arange(ids.shape[0], device=device)[:, None].expand_as(ids)
+    keep = ids < TRIGRAM_VOCAB_SIZE
+    t = t[keep]
+    byte = ids[keep].to(torch.int64) * nbytes + t // 8
+    bit = t % 8
+    packed = torch.zeros(TRIGRAM_VOCAB_SIZE * nbytes, dtype=torch.uint8, device=device)
+    for s in range(8):
+        sel = byte[bit == s]
+        packed[sel] = packed[sel] | (1 << s)
+    return packed.reshape(TRIGRAM_VOCAB_SIZE, nbytes)
+
+
+@dataclass
+class QueryBlockPlan:
+    """One exact-retrieval block: ≤ query_block queries whose trigram-id
+    union fits in ``union_ids`` (a size from ``union_buckets``)."""
+
+    query_rows: np.ndarray        # int64[n_valid] row numbers into the query set
+    union_ids: np.ndarray         # int32[U] gather rows (padded with 0)
+    w_pos: np.ndarray             # int32[query_block, LQ] positions into the
+                                  #   union; U is the padding slot
+    w_val: np.ndarray             # float32[query_block, LQ] IDF weights
+    max_intersection: np.ndarray  # float32[query_block] union-IDF upper bound
+    n_valid: int
+
+
+def plan_query_blocks(queries: TitleSet, index: TruthIndex, config: Config,
+                      rows: Optional[np.ndarray] = None) -> List[QueryBlockPlan]:
+    """Pack queries into blocks of ``query_block`` with a trigram-id union
+    of at most ``max(union_buckets)`` slots; a block whose union overflows
+    is split in half recursively (in order, so the plans keep the order of
+    ``rows``).  LQ is the smallest of (max_query_trigrams, 128, 253) that
+    holds every query's trigrams.  ``w_val`` is the real IDF (0 for a
+    trigram unobserved in truth); ``max_intersection`` sums the
+    IDF-or-max-IDF fallback in float64."""
+    cfg = config
+    if rows is None:
+        rows = np.arange(len(queries), dtype=np.int64)
+    rows = np.asarray(rows, dtype=np.int64)
+    if len(rows) == 0:
+        return []
+    qb = cfg.query_block
+    buckets = sorted(cfg.union_buckets or (qb * 32,))
+    union_cap = buckets[-1]
+    BIG = T.BIG_TRIGRAM
+
+    ids_all = queries.trigram_ids()[rows]
+    valid_all = ids_all != BIG
+    need = int(valid_all.sum(axis=1).max(initial=1))
+    lq = next(b for b in (cfg.max_query_trigrams, 128, 253) if need <= b or b == 253)
+    if ids_all.shape[1] < lq:
+        ids_all = np.concatenate([
+            ids_all, np.full((ids_all.shape[0], lq - ids_all.shape[1]), BIG, np.int32),
+        ], axis=1)
+        valid_all = ids_all != BIG
+    lq = min(lq, ids_all.shape[1])
+
+    clipped = np.clip(ids_all, 0, index.idf.shape[0] - 1)
+    idf_g = index.idf[clipped]
+    w_fb = np.where(index.df[clipped] > 0, idf_g, np.float32(index.max_idf))
+    maxint_all = (w_fb * valid_all).sum(axis=1, dtype=np.float64).astype(np.float32)
+
+    plans: List[QueryBlockPlan] = []
+
+    def emit(sel: np.ndarray) -> None:
+        blk_ids = ids_all[sel]
+        union = np.unique(blk_ids)
+        union = union[union != BIG]
+        if len(union) > union_cap:
+            mid = max(len(sel) // 2, 1)
+            emit(sel[:mid])
+            emit(sel[mid:])
+            return
+        m = len(sel)
+        u_size = next(b for b in buckets if len(union) <= b)
+        union_ids = np.zeros(u_size, dtype=np.int32)
+        union_ids[: len(union)] = union
+        v = valid_all[sel][:, :lq]
+        pos = np.where(v, np.searchsorted(union, blk_ids[:, :lq]), u_size)
+        w_pos = np.full((qb, lq), u_size, dtype=np.int32)
+        w_val = np.zeros((qb, lq), dtype=np.float32)
+        w_pos[:m] = pos
+        w_val[:m] = idf_g[sel][:, :lq] * v
+        maxint = np.zeros(qb, dtype=np.float32)
+        maxint[:m] = maxint_all[sel]
+        plans.append(QueryBlockPlan(query_rows=rows[sel], union_ids=union_ids, w_pos=w_pos,
+                                    w_val=w_val, max_intersection=maxint, n_valid=m))
+
+    for start in range(0, len(rows), qb):
+        emit(np.arange(start, min(start + qb, len(rows)), dtype=np.int64))
+    return plans

@@ -5,9 +5,11 @@ cascade) in PyTorch, on one device named by the caller.  Stages:
 
 1. **Exact**: transformed-title lookup (on duplicate truth titles the last
    id wins), prediction 1.0.
-2. **Fuzzy**: top-k retrieval candidates, length-delta prefilter, rounded
-   Levenshtein ratio with token-sort fallback; a unique max over the
-   threshold matches, tied maxima drop to stage 3.
+2. **Fuzzy**: top-k retrieval candidates (``ops/jaccard.py``: the exact
+   union engine below ``folded_min_titles`` titles, the folded engine at or
+   above it, or as ``retrieval_mode`` forces), length-delta prefilter,
+   rounded Levenshtein ratio with token-sort fallback; a unique max over
+   the threshold matches, tied maxima drop to stage 3.
 3. **Model**: GBT probability over the candidates, unique argmax above the
    probability threshold.  With adaptive depth, wave A scores the first
    ``model_depth_initial`` candidates of every row; rows whose wave-A max

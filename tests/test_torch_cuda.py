@@ -6,7 +6,9 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 
 Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
-``test_torch_*`` files).
+``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
+LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
+kernel).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 from doppelspeller_tpu_torch.ops import features_kernels as fk
 from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+from test_torch_helpers import union_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,69 @@ def test_kernel_a_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         jk.score_window_select(rows, w, sums, maxint, 100, tb=4096, W=16, folds=2,
                                score_dtype="float32")
+
+
+def _union_inputs(seed, qb, U, V, ntp, nt, device):
+    return [torch.from_numpy(x).to(device) for x in union_inputs(seed, qb, U, V, ntp, nt)]
+
+
+@pytest.mark.parametrize("U,nbytes", [(1024, 8192), (37, 16), (3, 48)])
+def test_kernel_c_equals_index_select(cuda, U, nbytes):
+    g = torch.Generator(device="cuda").manual_seed(U)
+    src = torch.randint(0, 256, (500, nbytes), device=cuda, generator=g, dtype=torch.int32).to(torch.uint8)
+    ids = torch.randint(0, 500, (U,), device=cuda, generator=g)
+    before = jk.gather_rows.launches
+    out = jk.gather_rows(src, ids)
+    assert jk.gather_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, jk.gather_rows_plain(src, ids))
+
+
+@pytest.mark.parametrize("tb,score_dtype,nt", [
+    (2048, "float32", 60_000), (2048, "bfloat16", 60_000), (128, "float32", 65_500),
+])
+def test_kernel_d_matches_plain(cuda, tb, score_dtype, nt):
+    packed, union_ids, w, sums, maxint = _union_inputs(tb + nt, 37, 1536, 3000, 1 << 16, nt, cuda)
+    rows = jk.gather_rows(packed, union_ids)
+    before = jk.score_full.launches
+    out = jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=score_dtype)
+    assert jk.score_full.launches == before + 1
+    plain = jk.score_full_plain(rows, jk.round_weights(w, score_dtype), sums, maxint, nt, tb=tb,
+                                out_dtype=jk.score_out_dtype(score_dtype))
+    torch.cuda.synchronize()
+    assert out.dtype == plain.dtype
+    if score_dtype == "float32":
+        torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-7)
+    else:
+        # one bf16 ulp: the two f32 sums may round to neighbouring bf16 values
+        ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp(min=1e-30))) - 7)
+        assert ((out.float() - plain.float()).abs() <= ulp).all()
+    vk, pk = jk.select_topk_permuted(out, 100, tb)
+    vp, pp = jk.select_topk_permuted(plain, 100, tb)
+    if score_dtype == "float32":
+        sep = jk.untied_slots(vp, 1e-6)
+        assert sep.float().mean() > 0.5
+        assert torch.equal(pk[sep], pp[sep])
+
+
+def test_kernel_e_matches_plain(cuda):
+    qb, U, lq, nt, tb, k = 64, 2048, 40, 100_000, 2048, 100
+    packed, union_ids, w, sums, maxint = _union_inputs(5, qb, U, 4000, 1 << 17, nt, cuda)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w_pos = torch.sort(torch.rand((qb, U - 5), device=cuda, generator=g).argsort(dim=1)[:, :lq],
+                       dim=1).values.to(torch.int32)
+    w_pos[-3:, 20:] = U                                           # padding slots
+    w_val = torch.rand((qb, lq), device=cuda, generator=g) * 6.0
+    args = (packed, sums, union_ids, w_pos, w_val, maxint, nt)
+    before = (jk.jaccard_topk_v1.launches, jk.gather_rows.launches, jk.score_full.launches)
+    vk, pk = jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype="float32")
+    assert (jk.jaccard_topk_v1.launches, jk.gather_rows.launches, jk.score_full.launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    vp, pp = jk.jaccard_topk_v1_plain(*args, k=k, tb=tb, score_dtype="float32")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
+    sep = jk.untied_slots(vp, 1e-6)
+    assert torch.equal(pk[sep], pp[sep])
 
 
 def _b_inputs(seed, B, TL, WL, device):

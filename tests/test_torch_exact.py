@@ -1,0 +1,248 @@
+"""PyTorch port, exact retrieval: the packed index and the query-block
+planner, the plain versions of kernels C, D and E against the Pallas kernels
+in interpret mode, and the exact ``JaccardScorer`` against the JAX scorer
+(``pallas_interpret``, ``retrieval_mode="exact"``, no truth).  The CUDA
+kernels themselves are compared with their plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+from collections import Counter
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from doppelspeller_tpu.ops.jaccard import JaccardScorer as JScorer
+from doppelspeller_tpu.ops.jaccard import densify_weights as j_densify
+from doppelspeller_tpu.ops.jaccard_pallas import (
+    gather_rows_pallas,
+    gatherable_view,
+    jaccard_topk_pallas,
+    jaccard_topk_pallas_v2,
+    permute_sums,
+)
+from doppelspeller_tpu.ops.ngram_index import build_truth_index as j_build_index
+from doppelspeller_tpu.ops.ngram_index import plan_query_blocks as j_plan
+from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+from doppelspeller_tpu_torch.ops.ngram_index import (
+    build_packed_matrix,
+    build_truth_index,
+    plan_query_blocks,
+)
+from doppelspeller_tpu_torch.utils.io import TitleSet
+from test_torch_helpers import port_config, union_inputs, untied
+
+EXACT = dict(retrieval_mode="exact", retrieval_impl="pallas_interpret", score_dtype="float32",
+             topk_recall_target=1.0)
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 1e-30)))
+    return np.exp2(e - 7)
+
+
+@pytest.fixture(scope="module", params=["world", "bench4096"])
+def both_worlds(request):
+    """(JAX config, JAX truth, JAX queries, port config, port truth, port queries)."""
+    if request.param == "world":
+        jcfg, jtruth, _train, jq, _actual = request.getfixturevalue("world")
+    else:
+        jcfg, jtruth, jq, _actual = bench.make_synthetic_world(4096, 512)
+        jcfg = jcfg.with_(data_path="/tmp/doppel_tpu_test_data")
+    cfg = port_config(jcfg)
+    truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
+    queries = TitleSet.from_titles(jq.titles, ids=jq.ids, config=cfg)
+    return jcfg, jtruth, jq, cfg, truth, queries
+
+
+def test_packed_matrix_equals_jax(both_worlds):
+    jcfg, jtruth, _jq, cfg, truth, _q = both_worlds
+    jpacked = j_build_index(jtruth, jcfg.with_(index_build_impl="host")).packed
+    packed = build_packed_matrix(build_truth_index(truth, cfg), "cpu")
+    assert packed.dtype == torch.uint8
+    np.testing.assert_array_equal(packed.numpy(), jpacked)
+
+
+def test_query_block_plans_equal_jax(both_worlds):
+    jcfg, jtruth, jq, cfg, truth, queries = both_worlds
+    jcfg = jcfg.with_(index_build_impl="host", union_buckets=(64, 96, 128))
+    jplans = j_plan(jq, j_build_index(jtruth, jcfg), jcfg)
+    plans = plan_query_blocks(queries, build_truth_index(truth, cfg),
+                              cfg.with_(union_buckets=(64, 96, 128)))
+    assert len(plans) == len(jplans) > len(queries) // cfg.query_block     # splits happened
+    for p, jp in zip(plans, jplans):
+        np.testing.assert_array_equal(p.query_rows, jp.query_rows)
+        np.testing.assert_array_equal(p.union_ids, jp.union_ids)
+        np.testing.assert_array_equal(p.w_pos, jp.w_pos)
+        np.testing.assert_array_equal(p.w_val, jp.w_val)
+        np.testing.assert_array_equal(p.max_intersection, jp.max_intersection)
+        assert p.n_valid == jp.n_valid
+
+
+@pytest.mark.parametrize("U", [64, 96, 33])
+def test_kernel_c_plain_matches_pallas_interpret(U):
+    rng = np.random.default_rng(U)
+    packed = rng.integers(0, 256, (301, 512), dtype=np.uint8)
+    ids = rng.integers(0, 301, U).astype(np.int32)
+    want = np.asarray(gather_rows_pallas(jnp.asarray(gatherable_view(packed)), jnp.asarray(ids),
+                                         interpret=True))
+    got = jk.gather_rows(torch.from_numpy(packed), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("tb,score_dtype", [
+    (128, "float32"), (2048, "float32"), (128, "bfloat16"), (2048, "bfloat16"),
+])
+def test_kernel_d_plain_matches_pallas_interpret(tb, score_dtype):
+    qb, U, V, ntp, nt, k = 16, 96, 400, 4096, 4000, 40
+    packed, union_ids, w, sums, maxint = union_inputs(tb, qb, U, V, ntp, nt)
+    jdt = jnp.float32 if score_dtype == "float32" else jnp.bfloat16
+    vj, pj = jaccard_topk_pallas_v2(
+        jnp.asarray(packed), jnp.asarray(permute_sums(sums, tb)), jnp.asarray(w).astype(jdt),
+        jnp.asarray(maxint), jnp.asarray(union_ids), jnp.int32(nt), k=k, tb=tb, uc=32,
+        score_dtype=score_dtype, interpret=True, recall_target=1.0, window_select=False,
+    )
+    vj, pj = np.asarray(vj), np.asarray(pj)
+    rows = jk.gather_rows(torch.from_numpy(packed), torch.from_numpy(union_ids))
+    jacc = jk.score_full(rows, torch.from_numpy(w), torch.from_numpy(sums), torch.from_numpy(maxint),
+                         nt, tb=tb, score_dtype=score_dtype)
+    assert jacc.dtype == (torch.float32 if score_dtype == "float32" else torch.bfloat16)
+    vp, pp = jk.select_topk_permuted(jacc, k, tb)
+    vp, pp = vp.numpy(), pp.numpy()
+    if score_dtype == "float32":
+        np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=0)
+        mask = untied(vj)
+        assert mask.mean() > 0.5
+        np.testing.assert_array_equal(pp[mask], pj[mask])
+    else:
+        assert (np.abs(vp - vj) <= bf16_ulp(vj)).all()
+
+
+@pytest.mark.parametrize("tb", [128, 2048])
+def test_kernel_d_exact_ties_positions_equal_everywhere(tb):
+    qb, U, V, ntp, nt, k = 16, 64, 300, 4096, 3900, 60
+    packed, union_ids, w, sums, maxint = union_inputs(7, qb, U, V, ntp, nt, integer=True)
+    vj, pj = jaccard_topk_pallas_v2(
+        jnp.asarray(packed), jnp.asarray(permute_sums(sums, tb)), jnp.asarray(w),
+        jnp.asarray(maxint), jnp.asarray(union_ids), jnp.int32(nt), k=k, tb=tb, uc=64,
+        score_dtype="float32", interpret=True, recall_target=1.0, window_select=False,
+    )
+    rows = jk.gather_rows(torch.from_numpy(packed), torch.from_numpy(union_ids))
+    vp, pp = jk.select_topk_permuted(
+        jk.score_full(rows, torch.from_numpy(w), torch.from_numpy(sums), torch.from_numpy(maxint),
+                      nt, tb=tb, score_dtype="float32"), k, tb)
+    vj = np.asarray(vj)
+    assert (~untied(vj, 0.0)).mean() > 0.9                   # almost every slot is tied
+    np.testing.assert_array_equal(vp.numpy(), vj)
+    np.testing.assert_array_equal(pp.numpy(), np.asarray(pj))
+
+
+@pytest.mark.parametrize("score_dtype,integer", [
+    ("float32", False), ("bfloat16", False), ("float32", True),
+])
+def test_kernel_e_plain_matches_pallas_interpret(score_dtype, integer):
+    qb, U, V, ntp, nt, k, tb, lq = 8, 64, 300, 2048, 2000, 25, 128, 12
+    packed, union_ids, w, sums, maxint = union_inputs(11, qb, U, V, ntp, nt, integer=integer)
+    rng = np.random.default_rng(5)
+    w_pos = np.full((qb, lq), U, np.int32)
+    w_val = np.zeros((qb, lq), np.float32)
+    for q in range(qb - 1):                                  # the last query is padding
+        n = rng.integers(3, lq + 1)
+        w_pos[q, :n] = np.sort(rng.choice(U - 5, n, replace=False))
+        w_val[q, :n] = w[q, w_pos[q, :n]] + 0.5
+    vj, pj = jaccard_topk_pallas(
+        jnp.asarray(packed), jnp.asarray(permute_sums(sums, tb)), jnp.asarray(union_ids),
+        jnp.asarray(w_pos), jnp.asarray(w_val), jnp.asarray(maxint), jnp.int32(nt),
+        k=k, tb=tb, score_dtype=score_dtype, interpret=True,
+    )
+    vj, pj = np.asarray(vj), np.asarray(pj)
+    dense = jk.densify_weights(torch.from_numpy(w_pos), torch.from_numpy(w_val), U)
+    np.testing.assert_array_equal(
+        dense.numpy(), np.asarray(j_densify(jnp.asarray(w_pos), jnp.asarray(w_val), U, jnp.float32)))
+    vp, pp = jk.jaccard_topk_v1(
+        *(torch.from_numpy(a) for a in (packed, sums, union_ids, w_pos, w_val, maxint)), nt,
+        k=k, tb=tb, score_dtype=score_dtype)
+    np.testing.assert_allclose(vp.numpy(), vj, rtol=1e-5, atol=0)
+    mask = np.ones_like(vj, bool) if integer else untied(vj)
+    assert mask.mean() > 0.5
+    np.testing.assert_array_equal(pp.numpy()[mask], pj[mask])
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    qb, U, V, ntp, nt, tb = 4, 32, 64, 2048, 2000, 2048
+    packed, union_ids, w, sums, maxint = union_inputs(3, qb, U, V, ntp, nt)
+    packed, union_ids, w, sums, maxint = (torch.from_numpy(a) for a in (packed, union_ids, w, sums, maxint))
+    w_pos = torch.arange(8, dtype=torch.int32).repeat(qb, 1)
+    counters = (jk.gather_rows, jk.score_full, jk.jaccard_topk_v1)
+    before = [f.launches for f in counters]
+    rows = jk.gather_rows(packed, union_ids)
+    jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype="bfloat16")
+    jk.jaccard_topk_v1(packed, sums, union_ids, w_pos, w[:, :8], maxint, nt, k=5, tb=tb,
+                       score_dtype="float32")
+    assert [f.launches for f in counters] == before
+
+
+@pytest.fixture(scope="module")
+def exact_scorers(world):
+    jcfg, jtruth, _train, jtest, _actual = world
+    jcfg = jcfg.with_(**EXACT)
+    cfg = port_config(jcfg)
+    truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
+    test = TitleSet.from_titles(jtest.titles, ids=jtest.ids, config=cfg)
+    out = {}
+    for ws in (False, True):
+        js = JScorer(j_build_index(jtruth, jcfg), jcfg.with_(retrieval_window_select=ws))
+        ps = JaccardScorer(build_truth_index(truth, cfg), cfg.with_(retrieval_window_select=ws), "cpu")
+        assert ps.exact is not None and ps.folded is None
+        out[ws] = (js, ps)
+    return jcfg, jtest, test, out
+
+
+@pytest.mark.parametrize("window_select", [False, True])
+def test_exact_scorer_matches_jax(exact_scorers, window_select):
+    jcfg, jtest, test, scorers = exact_scorers
+    js, ps = scorers[window_select]
+    vj, pj = js.topk(jtest, k=jcfg.top_n_predicting)
+    vp, pp = ps.topk(test, k=jcfg.top_n_predicting)
+    np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=1e-6)
+    mask = untied(vj, 1e-7)
+    assert mask.any()
+    np.testing.assert_array_equal(pp[mask], pj[mask])
+
+
+def test_exact_scorer_rows_subset(exact_scorers):
+    jcfg, jtest, test, scorers = exact_scorers
+    js, ps = scorers[False]
+    rows = np.array([3, 1, 40, 77, 12, 55, 9, 60, 2, 31])
+    vj, pj = js.topk(jtest, k=10, rows=rows)
+    ps.exact.union_sizes.clear()
+    vp, pp = ps.topk(test, k=10, rows=rows)
+    plans = plan_query_blocks(test, ps.index, ps.cfg, rows=rows)
+    assert ps.exact.union_sizes == Counter(p.union_ids.shape[0] for p in plans)
+    np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=1e-6)
+    mask = untied(vj, 1e-7)
+    np.testing.assert_array_equal(pp[mask], pj[mask])
+    full_v, _ = ps.topk(test, k=10)
+    np.testing.assert_array_equal(vp, full_v[rows])
+
+
+def test_exact_scorer_duplicate_titles_tie_order(world):
+    """Truth titles repeated at several positions score exactly equal: the
+    order among them is the reference's π column order."""
+    jcfg, jtruth, _train, jtest, _actual = world
+    jcfg = jcfg.with_(retrieval_window_select=False, **EXACT)
+    titles = list(jtruth.titles[:90]) * 3
+    jt = type(jtruth).from_titles(titles, ids=np.arange(len(titles)), config=jcfg)
+    js = JScorer(j_build_index(jt, jcfg), jcfg)
+    cfg = port_config(jcfg)
+    ps = JaccardScorer(build_truth_index(TitleSet.from_titles(titles, ids=np.arange(len(titles)),
+                                                              config=cfg), cfg), cfg, "cpu")
+    test = TitleSet.from_titles(jtest.titles, ids=jtest.ids, config=cfg)
+    vj, pj = js.topk(jtest, k=12)
+    vp, pp = ps.topk(test, k=12)
+    np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=1e-6)
+    assert (~untied(vj, 0.0)).mean() > 0.5
+    np.testing.assert_array_equal(pp, pj)

@@ -2,9 +2,6 @@
 the fuzzy decide, each against the JAX function on the same inputs (the
 committed smoke model, the conftest ``world``)."""
 
-import dataclasses
-import pathlib
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +21,7 @@ from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
-
-MODEL = pathlib.Path(__file__).resolve().parents[1] / "doppelspeller_tpu_torch" / "assets" / "bench_model_r60.npz"
-
-
-def port_config(jcfg, **overrides) -> Config:
-    return Config(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(Config)}).with_(**overrides)
+from test_torch_helpers import MODEL, port_config
 
 
 @pytest.fixture(scope="module")

@@ -1,9 +1,8 @@
 """PyTorch port, retrieval: kernel A's plain version against the Pallas
-kernel in interpret mode, and the folded ``JaccardScorer`` against the JAX
-scorer.  The CUDA kernel itself is compared with its plain version on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
-
-import dataclasses
+kernel in interpret mode, the folded ``JaccardScorer`` against the JAX
+scorer, and how a scorer resolves its mode.  The CUDA kernel itself is
+compared with its plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +12,8 @@ import torch
 from doppelspeller_tpu.ops.jaccard import JaccardScorer as JScorer
 from doppelspeller_tpu.ops.jaccard_pallas import jaccard_topk_pallas_v2, permute_sums
 from doppelspeller_tpu.ops.ngram_index import build_truth_index as j_build_index
-from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.models.gbt import GBTModel
+from doppelspeller_tpu_torch.ops import jaccard as jaccard_module
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.jaccard_kernels import (
     score_window_select,
@@ -21,17 +21,9 @@ from doppelspeller_tpu_torch.ops.jaccard_kernels import (
     select_topk_windowed,
 )
 from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+from doppelspeller_tpu_torch.pipeline import Matcher
 from doppelspeller_tpu_torch.utils.io import TitleSet
-
-
-def port_config(jcfg, **overrides) -> Config:
-    return Config(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(Config)}).with_(**overrides)
-
-
-def untied(vals: np.ndarray, eps: float = 1e-6) -> np.ndarray:
-    lo = np.concatenate([np.zeros((vals.shape[0], 1), bool), vals[:, 1:] >= vals[:, :-1] - eps], axis=1)
-    hi = np.concatenate([vals[:, :-1] <= vals[:, 1:] + eps, np.zeros((vals.shape[0], 1), bool)], axis=1)
-    return ~(lo | hi)
+from test_torch_helpers import MODEL, port_config, untied
 
 
 def _kernel_inputs(seed, qb, C, folds, ntp, nt):
@@ -131,14 +123,31 @@ def test_folded_scorer_rows_subset(scorers):
     np.testing.assert_array_equal(pj[mask], pp[mask])
 
 
-def test_exact_mode_is_not_ported(world):
+def test_folded_matcher_builds_no_packed_matrix(world, monkeypatch):
     jcfg, jtruth, *_ = world
-    cfg = port_config(jcfg, retrieval_mode="auto")
+    cfg = port_config(jcfg, retrieval_mode="folded")
     truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
-    with pytest.raises(NotImplementedError):
-        JaccardScorer(build_truth_index(truth, cfg), cfg, "cpu", truth)
-    with pytest.raises(NotImplementedError):
-        JaccardScorer(build_truth_index(truth, cfg), cfg.with_(retrieval_mode="exact"), "cpu", truth)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the folded path built the packed (V, ntp/8) matrix")
+
+    monkeypatch.setattr(jaccard_module, "build_packed_matrix", refuse)
+    matcher = Matcher(cfg, truth=truth, model=GBTModel.load(str(MODEL)), device="cpu")
+    assert matcher.scorer.folded is not None and matcher.scorer.exact is None
+
+
+def test_folded_without_truth_raises_and_auto_without_truth_is_exact(world):
+    jcfg, jtruth, *_ = world
+    cfg = port_config(jcfg)
+    truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
+    index = build_truth_index(truth, cfg)
+    with pytest.raises(ValueError):
+        JaccardScorer(index, cfg.with_(retrieval_mode="folded"), "cpu")
+    # as the trainer builds it: no truth, so "auto" stays exact at any size
+    scorer = JaccardScorer(index, cfg.with_(retrieval_mode="auto", folded_min_titles=1), "cpu")
+    assert scorer.exact is not None and scorer.folded is None
+    with pytest.raises(ValueError):
+        JaccardScorer(index, cfg.with_(retrieval_mode="approximate"), "cpu", truth)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -4,34 +4,19 @@ Pallas kernel in interpret mode, f32 scoring) with the committed smoke model,
 on the conftest ``world`` and on a 4096-title synthetic world deep enough
 (top-100 candidates) for the model stage's waves A and B to engage."""
 
-import dataclasses
-import pathlib
-
 import numpy as np
 
 import bench
 from doppelspeller_tpu.models.gbt import GBTModel as JGBTModel
 from doppelspeller_tpu.pipeline import Matcher as JMatcher
 from doppelspeller_tpu_torch import synthetic
-from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.pipeline import STAGE_MODEL, Matcher
 from doppelspeller_tpu_torch.utils.io import TitleSet
+from test_torch_helpers import MODEL, compare_predictions, port_config
 
-MODEL = pathlib.Path(__file__).resolve().parents[1] / "doppelspeller_tpu_torch" / "assets" / "bench_model_r60.npz"
 SLICE = dict(cascade_impl="device", retrieval_mode="folded", fold_hashes=2,
              retrieval_impl="pallas_interpret", score_dtype="float32")
-
-
-def port_config(jcfg, **overrides) -> Config:
-    return Config(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(Config)}).with_(**overrides)
-
-
-def _compare(rj, rp):
-    np.testing.assert_array_equal(rj.stage, rp.stage)
-    np.testing.assert_array_equal(rj.match_title_id, rp.match_title_id)
-    np.testing.assert_allclose(rj.prediction, rp.prediction, atol=1e-5)
-    assert rj.stage_counts == {k: rp.stage_counts[k] for k in rj.stage_counts}
 
 
 def test_predict_matches_jax_on_world(world):
@@ -43,7 +28,7 @@ def test_predict_matches_jax_on_world(world):
     truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
     test = TitleSet.from_titles(jtest.titles, ids=jtest.ids, config=cfg)
     rp = Matcher(cfg, truth=truth, model=GBTModel.load(str(MODEL)), device="cpu").predict(test)
-    _compare(rj, rp)
+    compare_predictions(rj, rp)
     assert all(rp.stage_counts[s] > 0 for s in ("exact", "fuzzy", "model"))
     assert (rp.match_title_id == actual).mean() > 0.8
 
@@ -66,7 +51,7 @@ def test_predict_matches_jax_with_waves(monkeypatch):
 
     monkeypatch.setattr(matcher.rerank, "decide", spy)
     rp = matcher.predict(queries)
-    _compare(rj, rp)
+    compare_predictions(rj, rp)
     assert (0, cfg.model_depth_initial) in calls                       # wave B ran
     assert (cfg.model_depth_initial, 0) in calls                       # wave A
     assert (rp.stage == STAGE_MODEL).sum() > 0
