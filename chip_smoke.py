@@ -6,12 +6,15 @@ Phases, each printing its seconds; any failure exits non-zero:
 
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles the port's CUDA kernels from ``doppelspeller_tpu_torch/csrc``
-   (one ``nvcc`` per source, side by side).
+   (one ``nvcc`` per source, side by side); prints ptxas's registers and
+   spills for kernel A and fails unless its machine code holds HGMMA
+   (tensor-core) instructions.
 3. kernel A (scoring with window select) against its plain PyTorch version
    at the folded path's shapes (QB=128, U=1024, folds=2, 524,288 titles,
    tb=2048, W=16) and at the exact path's largest union at 150k titles
-   (folds=1, U=3,072 gathered rows, 163,840 titles), each in f32 and in
-   bf16.
+   (folds=1, U=3,072 gathered rows, 163,840 titles), each with bf16 and
+   with f32 weights: rtol 1e-5 against plain on the same rounded weights,
+   titles equal on untied windows; time, TFLOP/s and share of the bound.
 4. kernel B (sliding-window LCS) against its plain version at model-stage
    shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.
 5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
@@ -30,7 +33,9 @@ Phases, each printing its seconds; any failure exits non-zero:
    run, every stage must match rows and accuracy must reach 0.80.
 10. exact main path: 150,000 titles x 16,384 queries, default Config
     (``auto`` resolves to exact: bf16, window select, so kernel C then A
-    with folds=1); the same checks, with C and A launching.
+    with folds=1); the same checks, with C and A launching; then one more
+    predict under ``torch.profiler``: the top kernels by device time and
+    kernel A's share.
 11. oracle anchor: the bench's exact-config oracle (f32, full matrix and
     exact top-k, model depth 0) on every 2nd query of the 500k world, the
     first 6,000; kernels C and D must launch, and the folded path's
@@ -40,12 +45,15 @@ Phases, each printing its seconds; any failure exits non-zero:
     oracle engine's kernel D retrieval.
 
 The line before the last is a JSON object with every kernel's route,
-source, launches in the path that carries it, error and times; the last
-line is ``{"ok": true, "device": {...}}``.
+source, launches in the path that carries it, error, times, bound (the
+least time the card could take, from the published H100 peaks) and the
+time of one PyTorch call computing the same function where there is one;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,14 +68,22 @@ N_TITLES, N_QUERIES, SEED = 500_000, 16_384, 7
 N_TITLES_EXACT = 150_000
 ORACLE_QUERIES, ORACLE_DELTA = 6000, 0.01
 ACCURACY_FLOOR = 0.80
+# published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores,
+# FP32 outside them, HBM; 32-bit integer operations at one per FP32 lane
+# and clock (half the FP32 rate, which counts an FMA as two)
+BF16_FLOP_PER_S, FP32_FLOP_PER_S, INT32_OPS_PER_S = 989e12, 67e12, 33.5e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def phase(name, t0):
     print(f"# phase {name}: {time.time() - t0:.3f} s", flush=True)
 
 
-def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(fn, reps=5, calls=5):
+    """Milliseconds per call of ``fn``: the median over ``reps`` windows of
+    ``calls`` back-to-back calls between two CUDA events, after a warm-up
+    call.  The host enqueues ahead of the card, so a window measures device
+    time rather than launch gaps."""
     import torch
 
     fn()
@@ -76,19 +92,29 @@ def cuda_ms(fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def bound(flop, peak, nbytes):
+    """(bound_ms, bound_by): the larger of the operations at ``peak`` and
+    the bytes at the HBM rate."""
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
     """Kernel A against its plain version at one shape (QB=128, tb=2048,
-    W=16), in f32 and with bf16 weights; returns errors and times."""
+    W=16), with bf16 and with f32 weights: scores to rtol 1e-5 against
+    plain on the same rounded weights (the products are exact, only the
+    summation order differs), titles equal on untied windows.  Returns
+    {dtype: stats}."""
     rng = torch.Generator(device="cuda").manual_seed(SEED)
     qb, tb, W = 128, 2048, 16
-    C = U // folds
     rows = (torch.rand((U, ntp), device="cuda", generator=rng) < 0.06)
     rows = (rows.view(U, ntp // 8, 8).to(torch.uint8)
             << torch.arange(8, device="cuda", dtype=torch.uint8)).sum(dim=2, dtype=torch.uint8)
@@ -99,59 +125,102 @@ def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
     # the bound is at least any intersection, as on the real path, so no
     # denominator comes near zero (where summation order alone moves scores)
     maxint = w.sum(dim=1)
+    kw = dict(tb=tb, W=W, folds=folds)
+    flop = 2.0 * qb * ntp * U
+    nbytes = U * ntp // 8 + qb * U * 4 + ntp * 4 + qb * 4 + qb * (ntp // W) * 8
     out = {}
-    for dt in ("float32", "bfloat16"):
-        wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds,
-                                        score_dtype=dt)
+    for dt in ("bfloat16", "float32"):
+        wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, score_dtype=dt, **kw)
         wr = jk.round_weights(w, dt)
-        wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, tb=tb, W=W, folds=folds)
+        wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw)
         torch.cuda.synchronize()
         err = float((wk - wp).abs().max())
-        if dt == "float32":
-            torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
-            # titles must agree wherever the window's best two offsets are not tied
-            bits = ((rows[:, :, None] >> torch.arange(8, device="cuda", dtype=torch.uint8)) & 1)
-            bits = bits.reshape(U, ntp).float()
-            num = None
-            for f in range(folds):
-                part = w[:, f * C : (f + 1) * C] @ bits[f * C : (f + 1) * C]
-                num = part if num is None else torch.minimum(num, part)
-            del bits
-            jacc = num / torch.clamp((sums[None] + maxint[:, None]) - num, min=1e-9)
-            jacc = torch.where(torch.arange(ntp, device="cuda")[None] < nt, jacc, torch.full_like(jacc, -1.0))
-            local = jk.window_titles(tb, W, "cuda")
-            jw = jacc.reshape(qb, ntp // tb, tb)[:, :, local]             # (qb, tiles, W, S)
-            top2 = jw.topk(2, dim=2).values
-            untied = (top2[:, :, 0] - top2[:, :, 1] > 1e-6 * top2[:, :, 0].abs()).reshape(qb, -1)
-            if not torch.equal(ak[untied], ap[untied]):
-                raise AssertionError(f"kernel A ({label}) window titles differ from the plain version")
-            print(f"# kernel A f32 ({label}): max |wmax err| {err:.3e} (rtol 1e-5); titles equal on "
-                  f"{int(untied.sum())}/{untied.numel()} untied windows", flush=True)
-            out["max_abs_err"] = err
-            out["ms"] = cuda_ms(lambda: jk.score_window_select(
-                rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds, score_dtype="float32"))
-            out["plain_ms"] = cuda_ms(lambda: jk.score_window_select_plain(
-                rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds))
-        else:
-            if err > 1e-2:
-                raise AssertionError(f"kernel A ({label}) bf16 max |wmax err| {err} > 1e-2")
-            print(f"# kernel A bf16 ({label}): max |wmax err| {err:.3e} (atol 1e-2)", flush=True)
-            out["ms_bf16"] = cuda_ms(lambda: jk.score_window_select(
-                rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds, score_dtype="bfloat16"))
-    print(f"# kernel A ({label}): {out['ms']:.3f} ms (bf16 {out['ms_bf16']:.3f} ms), plain "
-          f"{out['plain_ms']:.3f} ms per 128-query block", flush=True)
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+        untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
+        if not torch.equal(ak[untied], ap[untied]):
+            raise AssertionError(f"kernel A {dt} ({label}) window titles differ from the plain version")
+        ms = cuda_ms(lambda: jk.score_window_select(rows, w, sums, maxint, nt, score_dtype=dt, **kw))
+        plain_ms = cuda_ms(lambda: jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw))
+        # f32 weights go through three bf16 passes (hi + mid + lo)
+        bound_ms, bound_by = bound(flop * (1 if dt == "bfloat16" else 3), BF16_FLOP_PER_S, nbytes)
+        st = {"shape": label, "dtype": dt, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flop / ms * 1e-9,
+              "share_of_bound": bound_ms / ms}
+        print(f"# kernel A {dt} ({label}): max |wmax err| {err:.3e} (rtol 1e-5); titles equal on "
+              f"{int(untied.sum())}/{untied.numel()} untied windows; {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms per 128-query block; {st['tflops']:.1f} TFLOP/s; bound "
+              f"{bound_ms:.3f} ms ({bound_by}), {100 * st['share_of_bound']:.1f} % of it", flush=True)
+        out[dt] = st
     return out
 
 
 def check_kernel_a(torch, jk):
-    """At the folded path's shapes (the main numbers) and at the exact
-    path's largest union at 150k titles (keys ending in ``_folds1``)."""
-    out = check_kernel_a_at(torch, jk, "folds=2, U=1,024, 524,288 titles", 2, 1024, 524_288,
-                            500_000, 0.94)
-    exact = check_kernel_a_at(torch, jk, "folds=1, U=3,072, 163,840 titles", 1, 3072, 163_840,
-                              150_000, 0.98)
-    out.update({f"{k}_folds1": v for k, v in exact.items()})
-    return out
+    """At the folded path's shapes (the main numbers, bf16 as the default
+    config scores) and at the exact path's largest union at 150k titles."""
+    shapes = [check_kernel_a_at(torch, jk, "folds=2, U=1,024, 524,288 titles", 2, 1024, 524_288,
+                                500_000, 0.94),
+              check_kernel_a_at(torch, jk, "folds=1, U=3,072, 163,840 titles", 1, 3072, 163_840,
+                                150_000, 0.98)]
+    main = shapes[0]["bfloat16"]
+    res = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tflops",
+                                "share_of_bound")}
+    res["library_ms"] = None
+    res["shapes"] = [st for sh in shapes for st in sh.values()]
+    return res
+
+
+def check_tensor_cores(build, lib_path):
+    """Print what ptxas said of kernel A (registers, spills) and fail unless
+    its machine code holds tensor-core instructions (HGMMA)."""
+    kernel = "?"
+    for line in build.BUILD_LOG.get("score_window.cu", "").splitlines():
+        m = re.search(r"score_window_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            kernel = f"{m.group(1)} weight part(s), folds={m.group(2)}"
+        if "registers" in line or "spill" in line or "Performance Loss" in line:
+            print(f"# ptxas, kernel A ({kernel}): {line.replace('ptxas info    :', '').strip()}",
+                  flush=True)
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    n = sum(line.split()[1].startswith("HGMMA") for line in sass.splitlines()
+            if "/*" in line and len(line.split()) > 1)
+    print(f"# kernel A machine code: {n} HGMMA instructions", flush=True)
+    if n == 0:
+        raise AssertionError("kernel A does not use the tensor cores (no HGMMA in its SASS)")
+
+
+def profile_predict(torch, matcher, queries, label, top=10):
+    """One extra predict under torch.profiler (device activity only, to keep
+    its overhead low): the kernels by device time and kernel A's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        matcher.predict(queries)
+        torch.cuda.synchronize()
+    wall = time.time() - t
+    kernels = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append((us / 1e3, ev.count, ev.key))
+    total = sum(k[0] for k in kernels)
+    if total <= 0:
+        print(f"# {label} profile: device time not measured (the profiler recorded none)", flush=True)
+        return
+    kernels.sort(reverse=True)
+    a_ms = sum(ms for ms, _, key in kernels if "score_window_kernel" in key)
+    print(f"# {label} profile: {total:.1f} ms of kernel time in a {wall * 1e3:.1f} ms profiled "
+          f"predict (profiler overhead included); kernel A {a_ms:.1f} ms = "
+          f"{100 * a_ms / total:.1f} % of kernel time", flush=True)
+    for ms, count, key in kernels[:top]:
+        print(f"#   {ms:9.2f} ms {100 * ms / total:5.1f} % x{count:<6d} {key[:100]}", flush=True)
 
 
 def check_kernel_b(torch, fk):
@@ -174,10 +243,22 @@ def check_kernel_b(torch, fk):
             raise AssertionError(f"kernel B differs from the plain version at WL={WL}")
         ms = cuda_ms(lambda: fk.window_best(*args))
         plain = cuda_ms(lambda: fk.window_best_plain(*args))
+        # the LCS steps these inputs need: a word of length l against the
+        # e = min(qwol, TL) window starts steps min(l, e - p) characters
+        # from each start p, five 32-bit operations a step
+        e = q_wo_len.clamp(max=TL)[:, None].to(torch.float64)
+        ln = wlen.clamp(max=32).to(torch.float64)
+        steps = torch.where(ln >= e, e * (e + 1) / 2, ln * (e - ln) + ln * (ln + 1) / 2)
+        steps = float(torch.where((ln > 0) & (e > 0), steps, torch.zeros_like(steps)).sum())
+        nbytes = sum(a.numel() * a.element_size() for a in args) + B * W * 8
+        bound_ms, bound_by = bound(5 * steps, INT32_OPS_PER_S, nbytes)
         print(f"# kernel B WL={WL}: exactly equal; {ms:.3f} ms, plain {plain:.3f} ms "
-              f"({B} pairs x {W} words, TL={TL})", flush=True)
+              f"({B} pairs x {W} words, TL={TL}); bound {bound_ms:.3f} ms ({bound_by}: "
+              f"{steps:.3e} LCS steps, {nbytes / 1e6:.1f} MB)", flush=True)
         out[f"ms_wl{WL}"], out[f"plain_ms_wl{WL}"] = ms, plain
-    out["ms"], out["plain_ms"] = out["ms_wl32"], out["plain_ms_wl32"]
+        out[f"bound_ms_wl{WL}"], out["bound_by"] = bound_ms, bound_by
+    out["ms"], out["plain_ms"], out["bound_ms"] = out["ms_wl32"], out["plain_ms_wl32"], out["bound_ms_wl32"]
+    out["library_ms"] = None
     return out
 
 
@@ -208,11 +289,17 @@ def check_kernel_c(torch, jk, d):
     torch.cuda.synchronize()
     if not torch.equal(out, plain):
         raise AssertionError("kernel C differs from index_select")
+    ids64 = ids.to(torch.int64)
+    nbytes = 2 * ids.shape[0] * packed.shape[1] + ids.numel() * 4
+    bound_ms, bound_by = bound(0.0, 1.0, nbytes)
     res = {"max_abs_err": 0.0,
            "ms": cuda_ms(lambda: jk.gather_rows(packed, ids)),
-           "plain_ms": cuda_ms(lambda: jk.gather_rows_plain(packed, ids))}
-    print(f"# kernel C: exactly equal; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
-          f"({ids.shape[0]} rows x {packed.shape[1]} bytes)", flush=True)
+           "plain_ms": cuda_ms(lambda: jk.gather_rows_plain(packed, ids)),
+           "library_ms": cuda_ms(lambda: torch.index_select(packed, 0, ids64)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"# kernel C: exactly equal; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+          f"index_select {res['library_ms']:.3f} ms ({ids.shape[0]} rows x {packed.shape[1]} "
+          f"bytes); bound {bound_ms:.3f} ms ({bound_by})", flush=True)
     return res
 
 
@@ -220,7 +307,9 @@ def check_kernel_d(torch, jk, d):
     rows = jk.gather_rows(d["packed"], d["union_ids"])
     w = jk.densify_weights(d["w_pos"], d["w_val"], rows.shape[0])
     sums, maxint, nt, tb = d["sums"], d["maxint"], d["nt"], d["tb"]
-    res = {}
+    U, nbytes_row = rows.shape
+    qb, ntp = w.shape[0], nbytes_row * 8
+    res = {"library_ms": None}
     for dt in ("float32", "bfloat16"):
         out = jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=dt)
         plain = jk.score_full_plain(rows, jk.round_weights(w, dt), sums, maxint, nt, tb=tb,
@@ -246,11 +335,16 @@ def check_kernel_d(torch, jk, d):
         ms = cuda_ms(lambda: jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=dt))
         plain_ms = cuda_ms(lambda: jk.score_full_plain(
             rows, jk.round_weights(w, dt), sums, maxint, nt, tb=tb, out_dtype=jk.score_out_dtype(dt)))
+        out_bytes = 4 if dt == "float32" else 2
+        bound_ms, bound_by = bound(2.0 * qb * ntp * U,
+                                   FP32_FLOP_PER_S if dt == "float32" else BF16_FLOP_PER_S,
+                                   U * nbytes_row + qb * U * 4 + ntp * 4 + qb * 4 + qb * ntp * out_bytes)
         print(f"# kernel D {dt}: max |err| {err:.3e}; top-100 titles equal on {int(sep.sum())} "
               f"untied slots; {ms:.3f} ms, plain {plain_ms:.3f} ms per 128-query block "
-              f"(U={rows.shape[0]}, {rows.shape[1] * 8} titles)", flush=True)
+              f"(U={U}, {ntp} titles); bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         suffix = "" if dt == "float32" else "_bf16"
         res["ms" + suffix], res["plain_ms" + suffix] = ms, plain_ms
+        res["bound_ms" + suffix], res["bound_by" + suffix] = bound_ms, bound_by
     return res
 
 
@@ -264,12 +358,20 @@ def check_kernel_e(torch, jk, d):
     sep = jk.untied_slots(vp, 1e-6)
     if not torch.equal(pk[sep], pp[sep]):
         raise AssertionError("kernel E: top-k titles differ where untied")
+    # C's bytes (the union rows read once) and D's f32 work
+    U, nbytes_row = d["union_ids"].shape[0], d["packed"].shape[1]
+    qb, lq = d["w_pos"].shape
+    bound_ms, bound_by = bound(2.0 * qb * nbytes_row * 8 * U, FP32_FLOP_PER_S,
+                               U * nbytes_row + U * 4 + qb * lq * 8 + nbytes_row * 32 + qb * 4
+                               + qb * kw["k"] * 8)
     res = {"max_abs_err": float((vk - vp).abs().max()),
            "ms": cuda_ms(lambda: jk.jaccard_topk_v1(*args, **kw)),
-           "plain_ms": cuda_ms(lambda: jk.jaccard_topk_v1_plain(*args, **kw))}
+           "plain_ms": cuda_ms(lambda: jk.jaccard_topk_v1_plain(*args, **kw)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     print(f"# kernel E: max |top-k err| {res['max_abs_err']:.3e} (rtol 1e-5); titles equal on "
           f"{int(sep.sum())} untied slots; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
-          f"per 128-query block (gather, densify, score, select)", flush=True)
+          f"per 128-query block (gather, densify, score, select); bound {bound_ms:.3f} ms "
+          f"({bound_by})", flush=True)
     return res
 
 
@@ -370,6 +472,7 @@ def main() -> int:
     _build.lib()
     print(f"# built {len(paths)} libraries in {_build.BUILD_SECONDS or 0.0:.1f} s: "
           f"{', '.join(os.path.relpath(p, ROOT) for p in paths.values())}", flush=True)
+    check_tensor_cores(_build, paths["score_window.cu"])
     phase("build", t)
 
     t = time.time()
@@ -443,6 +546,9 @@ def main() -> int:
         raise AssertionError(f"the 150k default config did not take exact retrieval with A: {lx}")
     unions = dict(sorted(exact.scorer.exact.union_sizes.items()))
     print(f"# exact union buckets in the timed predict (U: blocks): {json.dumps(unions)}", flush=True)
+    t = time.time()
+    profile_predict(torch, exact, queries_x, "exact")
+    phase("exact_profile", t)
     build_150k = packed_build_seconds(exact)
     del exact
     torch.cuda.empty_cache()
@@ -509,20 +615,21 @@ def main() -> int:
     def entry(name, key, source, replaces, path, counts, stats, **extra):
         return {"name": name, "route": "cuda", "source": f"doppelspeller_tpu_torch/csrc/{source}",
                 "replaces": f"doppelspeller_tpu/ops/{replaces}", "launches": counts[key],
-                "path": path, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-                "plain_ms": stats["plain_ms"], **extra}
+                "path": path, **{k: stats[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")}, **extra}
 
     kernels = [
         entry("score_window_select", "A", "score_window.cu", "jaccard_pallas.py:263",
-              "folded main path (500k); exact main path (150k) launched it "
+              "folded main path (500k), bf16 weights; exact main path (150k) launched it "
               f"{lx['A']} times", la, ka,
-              **{k: ka[k] for k in ("max_abs_err_folds1", "ms_folds1", "plain_ms_folds1")}),
+              **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
               "folded main path (500k)", la, kb),
         entry("gather_rows", "C", "gather_rows.cu", "jaccard_pallas.py:29",
               "exact main path (150k)", lx, kc),
         entry("score_full", "D", "score_full.cu", "jaccard_pallas.py:210",
-              "oracle anchor (500k, 6,000 queries)", lo, kd),
+              "oracle anchor (500k, 6,000 queries), f32", lo, kd,
+              **{k: kd[k] for k in ("ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_by_bf16")}),
         entry("jaccard_topk_v1", "E", "score_full.cu", "jaccard_pallas.py:135",
               "v1 path (the oracle sample's retrieval)", lv, ke),
     ]

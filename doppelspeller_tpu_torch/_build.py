@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,7 +32,7 @@ _L = ctypes.c_longlong
 # entry point -> (source file, argument types)
 _SIGNATURES = {
     "doppel_score_window_select": ("score_window.cu",
-                                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I, _P]),
+                                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P]),
     "doppel_window_best": ("window_lcs.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "doppel_gather_rows": ("gather_rows.cu", [_P, _P, _P, _I, _L, _P]),
     "doppel_score_full": ("score_full.cu", [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
@@ -40,6 +40,9 @@ _SIGNATURES = {
 
 _LIB: Optional[SimpleNamespace] = None
 BUILD_SECONDS: Optional[float] = None
+# source file name -> what nvcc and ptxas printed (registers, spills, shared
+# memory per kernel) when this process built it
+BUILD_LOG: Dict[str, str] = {}
 
 
 def sources() -> List[str]:
@@ -91,6 +94,7 @@ def build() -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
         else:
+            BUILD_LOG[os.path.basename(src)] = err
             os.replace(tmp, lib_path)
     if errors:
         raise RuntimeError("nvcc failed: " + "\n".join(errors))

@@ -141,6 +141,63 @@ def score_window_select_plain(
     return torch.cat(wmax_parts, dim=1), torch.cat(warg_parts, dim=1)
 
 
+def untied_windows(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+                   maxint: torch.Tensor, nt: int, *, tb: int, W: int, folds: int,
+                   rtol: float) -> torch.Tensor:
+    """bool (QB, ntp/W): windows whose best score exceeds their second best
+    by more than ``rtol`` of it (weights already rounded), so that no
+    summation order can change which offset wins.  Two window selects are
+    held to equal titles there."""
+    QB = w.shape[0]
+    local = window_titles(tb, W, rows_u8.device)
+    parts = []
+    for _, jacc in _jaccard_chunks(rows_u8, w, sums, maxint, nt, tb, folds):
+        top2 = jacc.reshape(QB, -1, tb)[:, :, local].topk(2, dim=2).values    # (QB, tiles, 2, S)
+        parts.append((top2[:, :, 0] - top2[:, :, 1] > rtol * top2[:, :, 0].abs()).reshape(QB, -1))
+    return torch.cat(parts, dim=1)
+
+
+# kernel A's tiles: queries per block (wgmma N), rows per pipeline stage
+_A_QUERIES, _A_ROWS = 128, 64
+
+
+def split_weights(w: torch.Tensor, score_dtype: str) -> torch.Tensor:
+    """bf16 parts (P, QB, U) of f32 weights (QB, U) whose sum is the weight
+    the contraction sees: one part, the bf16-rounded weight, in bf16 mode;
+    three, hi + mid + lo, in f32 mode.  Each part takes the next 8
+    significant bits of what the earlier ones left, so the three sum exactly
+    to every f32 weight of the IDF range, and with 0/1 bits every product
+    on the tensor cores is exact."""
+    if score_dtype == "bfloat16":
+        return w.to(torch.bfloat16)[None]
+    if score_dtype != "float32":
+        raise ValueError(f"unknown score_dtype {score_dtype!r}")
+    hi = w.to(torch.bfloat16)
+    rest = w - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+def kernel_a_weights(w: torch.Tensor, folds: int, score_dtype: str) -> torch.Tensor:
+    """Kernel A's weight image: bf16 (P, folds, QB/128, C/64, 8, 16, 8, 8),
+    QB and the C rows of a fold padded with zero weights to whole blocks.
+    Entry [p, f, b, c, kh, nh, nl, kl] is part p of the weight of query
+    128·b + 8·nh + nl on row f·C + 64·c + 8·kh + kl, so each (part, fold,
+    query block, row chunk) is one contiguous 16 KB wgmma B tile in
+    core-matrix order (8 queries × 8 rows per 128 bytes)."""
+    parts = split_weights(w, score_dtype)
+    P, QB, U = parts.shape
+    C = U // folds
+    nqb = -(-QB // _A_QUERIES)
+    nch = -(-C // _A_ROWS)
+    img = torch.zeros((P, nqb * _A_QUERIES, folds, nch * _A_ROWS), dtype=torch.bfloat16,
+                      device=w.device)
+    img[:, :QB, :, :C] = parts.view(P, QB, folds, C)
+    img = img.view(P, nqb, 16, 8, folds, nch, 8, 8).permute(0, 4, 1, 5, 6, 2, 3, 7)
+    return img.contiguous()
+
+
 def score_window_select(
     rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor, maxint: torch.Tensor,
     nt: int, *, tb: int, W: int, folds: int, score_dtype: str,
@@ -153,28 +210,32 @@ def score_window_select(
     Returns (wmax f32 (QB, ntp/W), warg_title i32 (QB, ntp/W)): window
     g = tile·S + s holds its max score and the global title of the first
     offset reaching it.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel, which takes tb = 2048, W = 16 (the only tiling any
+    path uses) and folds of 1 or 2."""
     U, nbytes = rows_u8.shape
     ntp = nbytes * 8
     QB = w.shape[0]
     _check_score_inputs(rows_u8, w, sums, maxint, folds)
     if ntp % tb or tb % W:
         raise ValueError(f"title count {ntp} / tile {tb} / window {W} do not divide")
-    wr = round_weights(w, score_dtype)
     if rows_u8.device.type == "cpu":
-        return score_window_select_plain(rows_u8, wr, sums, maxint, nt, tb=tb, W=W, folds=folds)
-    if tb != 128 * W or W not in (1, 2, 4, 8, 16):
-        raise ValueError(f"kernel A takes tb = 128·W with W in 1..16, got tb={tb} W={W}")
-    dev = _check_launch("kernel A", rows_u8, wr, sums, maxint)
+        return score_window_select_plain(rows_u8, round_weights(w, score_dtype), sums, maxint, nt,
+                                         tb=tb, W=W, folds=folds)
+    if tb != 2048 or W != 16 or folds not in (1, 2):
+        raise ValueError(f"kernel A takes tb=2048, W=16 and folds 1 or 2, got tb={tb} W={W} "
+                         f"folds={folds}")
     if sums.dtype != torch.float32 or maxint.dtype != torch.float32:
         raise TypeError("sums and maxint must be float32")
+    dev = rows_u8.device
     wmax = torch.empty((QB, ntp // W), dtype=torch.float32, device=dev)
     warg = torch.empty((QB, ntp // W), dtype=torch.int32, device=dev)
     if QB == 0:
         return wmax, warg
+    img = kernel_a_weights(w, folds, score_dtype)
+    _check_launch("kernel A", rows_u8, img, sums, maxint)
     rc = _build.lib().doppel_score_window_select(
-        rows_u8.data_ptr(), wr.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
-        wmax.data_ptr(), warg.data_ptr(), QB, U // folds, folds, nbytes, tb, W,
+        rows_u8.data_ptr(), img.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
+        wmax.data_ptr(), warg.data_ptr(), QB, U // folds, folds, nbytes, img.shape[0],
         ntp // tb, int(nt), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "doppel_score_window_select")

@@ -38,32 +38,42 @@ def _a_inputs(seed, qb, C, folds, ntp, nt, device):
     w[rng.random((qb, U)) < 0.93] = 0.0
     sums = (rng.random(ntp) * 50.0 + 10.0).astype(np.float32)
     sums[nt:] = 0.0
-    maxint = (rng.random(qb) * 50.0 + 10.0).astype(np.float32)
+    # the bound is at least any intersection, as on the real path, so no
+    # denominator comes near zero (where summation order alone moves scores)
+    maxint = w.sum(axis=1)
     return [torch.from_numpy(x).to(device) for x in (rows, w, sums, maxint)]
 
 
-@pytest.mark.parametrize("tb,W,folds,score_dtype", [
-    (2048, 16, 2, "float32"),
-    (2048, 16, 2, "bfloat16"),
-    (2048, 16, 1, "float32"),
-    (128, 1, 2, "float32"),
+@pytest.mark.parametrize("folds,C,qb,score_dtype", [
+    (2, 512, 37, "float32"),
+    (2, 512, 37, "bfloat16"),
+    (2, 500, 37, "bfloat16"),     # rows per fold not a multiple of the 64-row step
+    (2, 512, 150, "bfloat16"),    # two blocks of 128 queries
+    (1, 1000, 37, "float32"),
+    (1, 1536, 128, "bfloat16"),   # the exact path's union sizes
+    (1, 3072, 128, "bfloat16"),
+    (1, 3072, 128, "float32"),
 ])
-def test_kernel_a_matches_plain(cuda, tb, W, folds, score_dtype):
-    nt = 60_000
-    rows, w, sums, maxint = _a_inputs(tb + folds, 37, 512, folds, 1 << 16, nt, cuda)
+def test_kernel_a_matches_plain(cuda, folds, C, qb, score_dtype):
+    tb, W, nt = 2048, 16, 60_000
+    rows, w, sums, maxint = _a_inputs(C + folds, qb, C, folds, 1 << 16, nt, cuda)
     before = jk.score_window_select.launches
     wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, tb=tb, W=W, folds=folds,
                                     score_dtype=score_dtype)
     assert jk.score_window_select.launches == before + 1
-    wp, ap = jk.score_window_select_plain(rows, jk.round_weights(w, score_dtype), sums, maxint, nt,
-                                          tb=tb, W=W, folds=folds)
+    wr = jk.round_weights(w, score_dtype)
+    wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, tb=tb, W=W, folds=folds)
     torch.cuda.synchronize()
+    # both modes: exact products (0/1 bits times bf16 parts), f32 sums in
+    # another order
     torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
-    # titles: with random f32 weights, near-ties between a window's offsets
-    # (where the two summation orders may pick different offsets) are rare
-    assert (ak == ap).float().mean() > 0.999
+    untied = jk.untied_windows(rows, wr, sums, maxint, nt, tb=tb, W=W, folds=folds, rtol=1e-5)
+    assert untied.float().mean() > 0.5
+    assert torch.equal(ak[untied], ap[untied])
+    # padded tiles: -1 at offset 0 (tile-local title 8·s)
     first_pad_tile = -(-nt // tb)
-    assert (wk[:, first_pad_tile * (tb // W):] == -1).all()
+    pad = slice(first_pad_tile * (tb // W), None)
+    assert (wk[:, pad] == -1).all() and torch.equal(ak[:, pad], ap[:, pad])
 
 
 def test_kernel_a_rejects_what_it_does_not_take(cuda):
@@ -74,6 +84,12 @@ def test_kernel_a_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         jk.score_window_select(rows, w, sums, maxint, 100, tb=4096, W=16, folds=2,
                                score_dtype="float32")
+    # the kernel is built for tb = 2048, W = 16, the only tiling any path
+    # uses; other windows raise rather than fall back to the plain version
+    for tb, W in ((128, 1), (1024, 8)):
+        with pytest.raises(ValueError):
+            jk.score_window_select(rows, w, sums, maxint, 100, tb=tb, W=W, folds=2,
+                                   score_dtype="float32")
 
 
 def _union_inputs(seed, qb, U, V, ntp, nt, device):

@@ -16,9 +16,11 @@ from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.ops import jaccard as jaccard_module
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.jaccard_kernels import (
+    kernel_a_weights,
     score_window_select,
     score_window_select_plain,
     select_topk_windowed,
+    split_weights,
 )
 from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
 from doppelspeller_tpu_torch.pipeline import Matcher
@@ -66,6 +68,74 @@ def test_kernel_a_plain_matches_pallas_interpret(tb, W, folds, score_dtype):
     mask = untied(vj)
     assert mask.mean() > 0.5
     np.testing.assert_array_equal(pj[mask], pp.numpy()[mask])
+
+
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+def test_kernel_a_weight_parts_sum_to_the_weights(score_dtype):
+    """f32: hi + mid + lo reproduces every f32 weight of the IDF range
+    exactly; bf16: the one part is the rounded weight."""
+    rng = np.random.default_rng(11)
+    w = (rng.random((64, 4096)) * 12.0).astype(np.float32)
+    w[rng.random(w.shape) < 0.3] = 0.0
+    w[0, :8] = [0.0, 12.0, 1e-3, 7.0 / 3.0, 0.1, 11.999999, 2.0 ** -20, 5.5]
+    parts = split_weights(torch.from_numpy(w), score_dtype)
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3 if score_dtype == "float32" else 1, *w.shape)
+    total = parts[0].float()
+    for p in parts[1:]:
+        total = total + p.float()
+    want = w if score_dtype == "float32" else torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(total.numpy(), want)
+
+
+@pytest.mark.parametrize("folds,C,qb", [(2, 70, 37), (1, 130, 150)])
+def test_kernel_a_weight_image_layout(folds, C, qb):
+    """The image holds each part's weight where the kernel reads it: query
+    n and row k of chunk c of fold f at element 1024·(k//8) + 64·(n//8) +
+    8·(n%8) + k%8 of its 16 KB tile; padding is zero."""
+    rng = np.random.default_rng(folds)
+    w = (rng.random((qb, folds * C)) * 10.0).astype(np.float32)
+    img = kernel_a_weights(torch.from_numpy(w), folds, "float32")
+    parts = split_weights(torch.from_numpy(w), "float32").float().numpy()
+    P, nqb, nch = 3, -(-qb // 128), -(-C // 64)
+    assert img.shape == (P, folds, nqb, nch, 8, 16, 8, 8)
+    flat = img.float().numpy().reshape(-1)
+    p, f, q, r = np.meshgrid(np.arange(P), np.arange(folds), np.arange(nqb * 128),
+                             np.arange(nch * 64), indexing="ij")
+    tile = ((p * folds + f) * nqb + q // 128) * nch + r // 64
+    n, k = q % 128, r % 64
+    got = flat[tile * 8192 + 1024 * (k // 8) + 64 * (n // 8) + 8 * (n % 8) + k % 8]
+    want = np.zeros_like(got)
+    want[:, :, :qb, :C] = parts.reshape(P, qb, folds, C).transpose(0, 2, 1, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("folds", [1, 2])
+def test_kernel_a_three_parts_match_plain_and_pallas_interpret(folds):
+    """Scoring with the weights the f32 kernel contracts (the sum of the
+    three bf16 parts read back from its image) equals the plain f32 version
+    and the Pallas kernel in interpret mode."""
+    tb, W = 2048, 16
+    qb, C, ntp, nt, k = 16, 64, 4096, 4000, 48
+    rows, w, sums, maxint = _kernel_inputs(tb + folds, qb, C, folds, ntp, nt)
+    img = kernel_a_weights(torch.from_numpy(w), folds, "float32").float()
+    # (P, folds, 1, 1, 8, 16, 8, 8) → (P, queries, folds·C)
+    parts = img[:, :, 0, 0].permute(0, 3, 4, 1, 2, 5).reshape(3, 128, folds * 64)[:, :qb]
+    w_img = parts[0] + parts[1] + parts[2]
+    args = (torch.from_numpy(rows), w_img, torch.from_numpy(sums), torch.from_numpy(maxint), nt)
+    wi, ai = score_window_select_plain(*args, tb=tb, W=W, folds=folds)
+    wp, ap = score_window_select_plain(torch.from_numpy(rows), torch.from_numpy(w), *args[2:],
+                                       tb=tb, W=W, folds=folds)
+    assert torch.equal(wi, wp) and torch.equal(ai, ap)
+    vj, pj = jaccard_topk_pallas_v2(
+        jnp.asarray(rows), jnp.asarray(permute_sums(sums, tb)), jnp.asarray(w), jnp.asarray(maxint),
+        None, jnp.int32(nt), k=k, tb=tb, uc=C, score_dtype="float32", interpret=True,
+        recall_target=1.0, window_select=True, folds=folds,
+    )
+    vi, pi = select_topk_windowed(wi, ai, k)
+    np.testing.assert_allclose(np.asarray(vj), vi.numpy(), rtol=1e-5, atol=1e-6)
+    mask = untied(np.asarray(vj))
+    assert mask.mean() > 0.5
+    np.testing.assert_array_equal(np.asarray(pj)[mask], pi.numpy()[mask])
 
 
 def test_kernel_a_window_grouping_and_padding():
