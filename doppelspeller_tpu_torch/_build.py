@@ -35,7 +35,8 @@ _SIGNATURES = {
                                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P]),
     "doppel_window_best": ("window_lcs.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "doppel_gather_rows": ("gather_rows.cu", [_P, _P, _P, _I, _L, _P]),
-    "doppel_score_full": ("score_full.cu", [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
+    "doppel_score_full": ("score_full.cu",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P]),
 }
 
 _LIB: Optional[SimpleNamespace] = None

@@ -1,7 +1,9 @@
-"""The device a matcher runs on, named by the caller.
+"""The device a matcher runs on.
 
-There is no automatic choice and no fallback: asking for CUDA where there is
-none raises.
+The entry points (``Matcher``, ``JaccardScorer`` and the engines they build)
+run on the card, ``"cuda"``, unless the caller names the CPU.  There is no
+automatic choice and no fallback: asking for CUDA where there is none
+raises.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from doppelspeller_tpu_torch.config import N_TEXT_CHARS, TRIGRAM_VOCAB_SIZE, Config
+from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.jaccard_kernels import score_window_select, select_topk_windowed
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
@@ -193,8 +194,9 @@ def rescore_exact(tl_mat: torch.Tensor, sums: torch.Tensor, ids: torch.Tensor,
 class FoldedEngine(nn.Module):
     """Device-resident folded-retrieval state for one truth set."""
 
-    def __init__(self, index, truth: TitleSet, cfg: Config, device, tb: int):
+    def __init__(self, index, truth: TitleSet, cfg: Config, device="cuda", *, tb: int):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.C = int(cfg.fold_dim)
         self.kprime = int(cfg.rescore_depth)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.levenshtein import rounded_ratio
 
 # pairs scored per LCS call (bounds the (pairs, TL, words) temporaries)
@@ -87,7 +88,7 @@ class FuzzyEngine(nn.Module):
 
     def __init__(self, truth_enc: np.ndarray, truth_len: np.ndarray,
                  ts_truth_enc: np.ndarray, ts_truth_len: np.ndarray,
-                 truth_wlen_max: np.ndarray, config: Config, device):
+                 truth_wlen_max: np.ndarray, config: Config, device="cuda"):
         super().__init__()
         if config.fuzzy_tile_cap:
             raise NotImplementedError(
@@ -95,7 +96,7 @@ class FuzzyEngine(nn.Module):
                 "PyTorch port does not have yet; use fuzzy_tile_cap=0"
             )
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def put(x, dtype=None):
             t = torch.from_numpy(np.ascontiguousarray(x))

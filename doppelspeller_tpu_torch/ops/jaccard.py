@@ -4,10 +4,11 @@ The JAX package's ``JaccardScorer`` with both of its engines:
 
 - **exact** (``ExactEngine``, the JAX ``_topk_multiblock`` with
   ``impl="pallas"``): per block of ``query_block`` queries, the union of
-  their trigram ids is gathered from the packed index (kernel C), then
-  scored either with the per-window pre-selection (kernel A, ``folds=1``;
-  ``retrieval_window_select``, the default) or as the full matrix (kernel
-  D) followed by an exact top-k.  ``"exact"`` takes it at any size,
+  their trigram ids is scored either with the per-window pre-selection
+  (``retrieval_window_select``, the default: kernel C gathers the union's
+  rows, kernel A scores them with ``folds=1``) or as the full matrix
+  (kernel D, which reads the union's rows straight from the packed index)
+  followed by an exact top-k.  ``"exact"`` takes it at any size,
   ``"auto"`` below ``folded_min_titles`` or when no truth encodings are
   given;
 - **folded** (``ops/fold.py``): ``"folded"``, and ``"auto"`` at or above
@@ -43,9 +44,10 @@ class ExactEngine(nn.Module):
     """Device-resident exact-retrieval state: the packed (V, ntp/8) index,
     the IDF tables and the per-title sums."""
 
-    def __init__(self, index: TruthIndex, cfg: Config, device, tb: int):
+    def __init__(self, index: TruthIndex, cfg: Config, device="cuda", *, tb: int):
         super().__init__()
         self.cfg = cfg
+        device = resolve_device(device)
         self.tb = tb
         self.nt = index.num_titles
         self.register_buffer("packed", build_packed_matrix(index, device))
@@ -72,14 +74,15 @@ class ExactEngine(nn.Module):
         w_val = torch.cat([self.idf[uid], zero])[wp]
         maxint = torch.cat([self.fb[uid], zero])[wp].sum(dim=1)
         w = jk.densify_weights(wp, w_val, u)
-        rows = jk.gather_rows(self.packed, uid)
         sd = self.cfg.score_dtype
         if self.cfg.retrieval_window_select:
+            rows = jk.gather_rows(self.packed, uid)
             W = max(self.tb // 128, 1)
             wmax, warg = jk.score_window_select(rows, w, self.sums, maxint, self.nt,
                                                 tb=self.tb, W=W, folds=1, score_dtype=sd)
             return jk.select_topk_windowed(wmax, warg, k)
-        jacc = jk.score_full(rows, w, self.sums, maxint, self.nt, tb=self.tb, score_dtype=sd)
+        jacc = jk.score_full(self.packed, uid, w, self.sums, maxint, self.nt, tb=self.tb,
+                             score_dtype=sd)
         return jk.select_topk_permuted(jacc, k, self.tb)
 
 
@@ -87,7 +90,7 @@ class JaccardScorer:
     """Device-resident retrieval engine over a TruthIndex.  ``truth`` (the
     encodings) is needed by the folded engine only."""
 
-    def __init__(self, index: TruthIndex, config: Config, device,
+    def __init__(self, index: TruthIndex, config: Config, device="cuda",
                  truth: Optional[TitleSet] = None):
         self.cfg = config
         self.index = index
@@ -103,8 +106,8 @@ class JaccardScorer:
             raise ValueError("retrieval_mode='folded' needs the truth TitleSet "
                              "(encodings): pass truth= to JaccardScorer")
         tb = 2048 if index.padded_titles % 2048 == 0 else config.title_block
-        self.folded = FoldedEngine(index, truth, config, self.device, tb) if folded else None
-        self.exact = None if folded else ExactEngine(index, config, self.device, tb)
+        self.folded = FoldedEngine(index, truth, config, self.device, tb=tb) if folded else None
+        self.exact = None if folded else ExactEngine(index, config, self.device, tb=tb)
 
     def topk_device(self, queries: TitleSet, k: Optional[int] = None,
                     rows: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:

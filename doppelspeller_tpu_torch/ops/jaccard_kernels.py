@@ -9,10 +9,12 @@ TPU kernels of ``doppelspeller_tpu/ops/jaccard_pallas.py``:
   scores fused with the per-window pre-selection; ``folds=2`` on the
   folded path, ``folds=1`` on gathered union rows on the exact path.
 - C ``gather_rows`` (``csrc/gather_rows.cu``) ↔ ``_gather_rows_kernel``.
-- D ``score_full`` (``csrc/score_full.cu``) ↔ ``_score_kernel_v2``: the full
-  (QB, ntp) Jaccard matrix, bf16 out when scoring in bf16, else f32.
+- D ``score_full`` (``csrc/score_full.cu``) ↔ ``_score_kernel_v2`` with
+  the union's row gather before it: the full (QB, ntp) Jaccard matrix, bf16
+  out when scoring in bf16, else f32, reading the union's rows straight
+  from the packed index; on A's tensor-core mainloop and weight image.
 - E ``jaccard_topk_v1`` ↔ ``_score_kernel`` (``jaccard_topk_pallas``):
-  sparse weights densified, gathered through C, D's kernel with f32 out.
+  sparse weights densified, D's kernel with f32 out.
 
 Titles are stored in natural order (bit t % 8 of byte t // 8), not in the
 TPU kernels' per-tile permutation π, but every choice that depends on π is
@@ -92,7 +94,7 @@ def _jaccard_chunks(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
         yield t0, torch.where(tpos[None, :] < nt, jacc, torch.full_like(jacc, -1.0))
 
 
-def _check_score_inputs(rows_u8, w, sums, maxint, folds: int = 1) -> None:
+def _check_score_inputs(rows_u8, w, sums, maxint, folds: int) -> None:
     U, nbytes = rows_u8.shape
     if rows_u8.dtype != torch.uint8 or w.dtype != torch.float32:
         raise TypeError("rows_u8 must be uint8 and w float32")
@@ -180,7 +182,7 @@ def split_weights(w: torch.Tensor, score_dtype: str) -> torch.Tensor:
 
 
 def kernel_a_weights(w: torch.Tensor, folds: int, score_dtype: str) -> torch.Tensor:
-    """Kernel A's weight image: bf16 (P, folds, QB/128, C/64, 8, 16, 8, 8),
+    """Kernel A's weight image (kernel D's with folds=1): bf16 (P, folds, QB/128, C/64, 8, 16, 8, 8),
     QB and the C rows of a fold padded with zero weights to whole blocks.
     Entry [p, f, b, c, kh, nh, nl, kl] is part p of the weight of query
     128·b + 8·nh + nl on row f·C + 64·c + 8·kh + kl, so each (part, fold,
@@ -292,8 +294,9 @@ gather_rows.launches = 0
 def score_full_plain(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
                      maxint: torch.Tensor, nt: int, *, tb: int,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of kernel D (weights already rounded): the
-    (QB, ntp) Jaccard matrix in π column order, rounded to ``out_dtype``."""
+    """Plain PyTorch version of kernel D after the gather: the (QB, ntp)
+    Jaccard matrix of gathered rows (``gather_rows_plain``) and weights
+    already rounded, in π column order, rounded to ``out_dtype``."""
     QB = w.shape[0]
     ntp = rows_u8.shape[1] * 8
     out = torch.empty((QB, ntp), dtype=out_dtype, device=rows_u8.device)
@@ -309,28 +312,39 @@ def score_out_dtype(score_dtype: str) -> torch.dtype:
     return torch.bfloat16 if score_dtype == "bfloat16" else torch.float32
 
 
-def _score_full(rows_u8, w, sums, maxint, nt, tb, score_dtype, out_dtype, entry):
-    """D's checks and routes: the plain version on CPU tensors, the kernel
-    on CUDA tensors, counted on ``entry`` (the public wrapper called)."""
-    U, nbytes = rows_u8.shape
+def _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, out_dtype, entry):
+    """D's checks and routes: the plain version on CPU tensors (gather, then
+    score), the kernel with the gather fused on CUDA tensors, counted on
+    ``entry`` (the public wrapper called)."""
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or union_ids.dim() != 1:
+        raise TypeError("kernel D takes a 2-D uint8 packed index and 1-D union ids")
+    V, nbytes = packed.shape
+    U = union_ids.shape[0]
     QB = w.shape[0]
-    _check_score_inputs(rows_u8, w, sums, maxint)
+    if w.dtype != torch.float32:
+        raise TypeError("w must be float32")
+    if w.shape[1] != U or sums.shape != (nbytes * 8,) or maxint.shape != (QB,):
+        raise ValueError(f"shape mismatch: packed {tuple(packed.shape)}, union {U}, w "
+                         f"{tuple(w.shape)}, sums {tuple(sums.shape)}, maxint {tuple(maxint.shape)}")
     if (nbytes * 8) % tb or tb % 8:
         raise ValueError(f"title count {nbytes * 8} / tile {tb} do not divide")
-    wr = round_weights(w, score_dtype)
-    if rows_u8.device.type == "cpu":
-        return score_full_plain(rows_u8, wr, sums, maxint, nt, tb=tb, out_dtype=out_dtype)
-    dev = _check_launch("kernel D", rows_u8, wr, sums, maxint)
+    if packed.device.type == "cpu":
+        return score_full_plain(gather_rows_plain(packed, union_ids), round_weights(w, score_dtype),
+                                sums, maxint, nt, tb=tb, out_dtype=out_dtype)
+    if tb % 64 or nbytes % 16 or U == 0:
+        raise ValueError(f"kernel D takes tiles of a multiple of 64 titles, rows of a multiple of "
+                         f"16 bytes and a nonempty union, got tb={tb}, {nbytes} bytes, U={U}")
     if sums.dtype != torch.float32 or maxint.dtype != torch.float32:
         raise TypeError("sums and maxint must be float32")
-    if nbytes % 16:
-        raise ValueError(f"kernel D takes rows of a multiple of 16 bytes, got {nbytes}")
+    ids32 = union_ids.to(torch.int32).contiguous()
+    img = kernel_a_weights(w, 1, score_dtype)
+    dev = _check_launch("kernel D", packed, ids32, img, sums, maxint)
     out = torch.empty((QB, nbytes * 8), dtype=out_dtype, device=dev)
     if QB == 0:
         return out
     rc = _build.lib().doppel_score_full(
-        rows_u8.data_ptr(), wr.data_ptr(), sums.data_ptr(), maxint.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), QB, nbytes, U, tb, int(nt),
+        packed.data_ptr(), ids32.data_ptr(), img.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
+        out.data_ptr(), img.shape[0], int(out_dtype == torch.bfloat16), QB, U, nbytes, tb, int(nt),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "doppel_score_full")
@@ -338,13 +352,15 @@ def _score_full(rows_u8, w, sums, maxint, nt, tb, score_dtype, out_dtype, entry)
     return out
 
 
-def score_full(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
                maxint: torch.Tensor, nt: int, *, tb: int, score_dtype: str) -> torch.Tensor:
-    """The full Jaccard matrix of gathered union rows: rows_u8 u8 (U,
-    ntp/8), w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp)
-    in π column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    return _score_full(rows_u8, w, sums, maxint, nt, tb, score_dtype,
+    """The full Jaccard matrix of a query block over the union rows
+    ``union_ids`` (U,) (repeats allowed) of the packed index u8 (V, ntp/8):
+    w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp) in π
+    column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU tensors
+    gather and score with the plain versions; CUDA tensors launch the
+    kernel, which reads the union's rows straight from ``packed``."""
+    return _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype,
                        score_out_dtype(score_dtype), score_full)
 
 
@@ -411,10 +427,11 @@ def jaccard_topk_v1(packed: torch.Tensor, sums: torch.Tensor, union_ids: torch.T
     padding), w_val f32 (QB, LQ), maxint f32 (QB,) → exact top-k (scores
     f32 (QB, k), titles i32 (QB, k)).  Scores are f32 whatever
     ``score_dtype`` (which rounds the weights).  CPU tensors take the plain
-    versions; CUDA tensors gather through kernel C and launch D's kernel."""
+    versions; CUDA tensors launch D's kernel, which reads the union's rows
+    straight from ``packed``."""
     w = densify_weights(w_pos, w_val, union_ids.shape[0])
-    jacc = _score_full(gather_rows(packed, union_ids), w, sums, maxint, nt, tb, score_dtype,
-                       torch.float32, jaccard_topk_v1)
+    jacc = _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, torch.float32,
+                       jaccard_topk_v1)
     return select_topk_permuted(jacc, k, tb)
 
 

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.models.gbt import GBTModel, predict_forest_margin
 from doppelspeller_tpu_torch.ops.features import features_kernel, gather_word_chars
 
@@ -49,10 +50,10 @@ class RerankEngine(nn.Module):
     def __init__(self, truth_enc: np.ndarray, truth_len: np.ndarray,
                  truth_words: Tuple[np.ndarray, np.ndarray, np.ndarray],
                  counts_matrix: np.ndarray, model: GBTModel, n_truth: int,
-                 config: Config, device):
+                 config: Config, device="cuda"):
         super().__init__()
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def put(x, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)

@@ -1,7 +1,8 @@
 """The prediction cascade: exact → Jaccard top-n → fuzzy Levenshtein → model.
 
 The JAX package's ``pipeline.py`` (``Matcher.predict`` with its device
-cascade) in PyTorch, on one device named by the caller.  Stages:
+cascade) in PyTorch, on one device: the card unless the caller names the
+CPU.  Stages:
 
 1. **Exact**: transformed-title lookup (on duplicate truth titles the last
    id wins), prediction 1.0.
@@ -66,7 +67,7 @@ class PredictionResult:
 class Matcher:
     """End-to-end matcher over a truth database, on one device."""
 
-    def __init__(self, config: Config, truth: TitleSet, model: GBTModel, device):
+    def __init__(self, config: Config, truth: TitleSet, model: GBTModel, device="cuda"):
         self.cfg = config
         self.device = resolve_device(device)
         self.truth = truth

@@ -19,7 +19,8 @@ with bf16 and with f32 weights:
 - ``clock``: the base kernel with ``clock64`` stamps; warp 0 of every block
   records the cycles of its contraction and of its epilogue.
 
-The variants are patched from the committed source by exact text
+The variants are patched from the committed source, with the shared header
+``csrc/wgmma_bits.cuh`` written in place of its ``#include``, by exact text
 replacement, and the script stops if a pattern is missing.  Their outputs
 are not checked (most are wrong by design).  Times are milliseconds per
 launch over 20 back-to-back launches, by CUDA events.
@@ -38,18 +39,19 @@ OUT = os.path.join(ROOT, "build", "kernel_a_breakdown")
 
 def patch(src, old, new):
     if src.count(old) != 1:
-        raise SystemExit(f"pattern not found once in score_window.cu: {old[:60]!r}")
+        raise SystemExit(f"pattern not found once in score_window.cu and wgmma_bits.cuh: "
+                         f"{old[:60]!r}")
     return src.replace(old, new)
 
 
 def variant_sources(src):
     """{variant: (source text, extra nvcc flags)}."""
-    mma = ("          wgmma_rs(acc[f * MT + mt], a[ks][mt], b_desc(wbase + p * kWTile * 2 + ks * 2 * 2048),\n"
-           "                   kc > 0 || ks > 0 || p > 0);")
+    mma = ("        wgmma_rs(acc[acc0 + mt], a[ks][mt], b_desc(w_stage + p * kWTile * 2 + ks * 2 * 2048),\n"
+           "                 !first || ks > 0 || p > 0);")
     src = patch(src, mma, "#ifndef NO_MMA\n" + mma + """
 #else
           { asm volatile("" :: "r"(a[ks][mt][0]), "r"(a[ks][mt][1]), "r"(a[ks][mt][2]), "r"(a[ks][mt][3]));
-            acc[f * MT + mt][p] += 1.f; }
+            acc[acc0 + mt][p] += 1.f; }
 #endif""")
     src = patch(src, "  // epilogue, per window", """#ifdef NO_EPILOGUE
   { float t = 0.f;
@@ -98,7 +100,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(_build.CSRC, "score_window.cu")) as f:
-        variants = variant_sources(f.read())
+        src = f.read()
+    with open(os.path.join(_build.CSRC, "wgmma_bits.cuh")) as f:
+        src = patch(src, '#include "wgmma_bits.cuh"\n', f.read())
+    variants = variant_sources(src)
     procs = {}
     for name, (text, flags) in variants.items():
         path = os.path.join(OUT, f"{name}.cu")

@@ -8,7 +8,8 @@ Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
 ``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
 LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
-kernel).
+kernel).  D's and E's kernel reads the union's rows straight from the
+packed index; the tests hold it against the plain gather and scoring.
 """
 
 import numpy as np
@@ -17,7 +18,6 @@ import torch
 
 from doppelspeller_tpu_torch.ops import features_kernels as fk
 from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
-from test_torch_helpers import union_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -92,10 +92,6 @@ def test_kernel_a_rejects_what_it_does_not_take(cuda):
                                    score_dtype="float32")
 
 
-def _union_inputs(seed, qb, U, V, ntp, nt, device):
-    return [torch.from_numpy(x).to(device) for x in union_inputs(seed, qb, U, V, ntp, nt)]
-
-
 @pytest.mark.parametrize("U,nbytes", [(1024, 8192), (37, 16), (3, 48)])
 def test_kernel_c_equals_index_select(cuda, U, nbytes):
     g = torch.Generator(device="cuda").manual_seed(U)
@@ -108,47 +104,96 @@ def test_kernel_c_equals_index_select(cuda, U, nbytes):
     assert torch.equal(out, jk.gather_rows_plain(src, ids))
 
 
-@pytest.mark.parametrize("tb,score_dtype,nt", [
-    (2048, "float32", 60_000), (2048, "bfloat16", 60_000), (128, "float32", 65_500),
+def _d_inputs(seed, qb, U, V, ntp, nt, device):
+    """A packed index u8 (V, ntp/8), a union of U ids that repeat (at random
+    and in one copied run, every copy weighted) and end in padding rows (id
+    0, no weight), weights f32 (qb, U), sums f32 (ntp,) and the real path's
+    bound maxint f32 (qb,), at least every intersection, so no denominator
+    comes near zero (where summation order alone moves scores)."""
+    rng = np.random.default_rng(seed)
+    packed = np.packbits(rng.random((V, ntp // 8, 8)) < 0.1, axis=2, bitorder="little")[:, :, 0]
+    ids = rng.integers(0, V, U).astype(np.int32)
+    ids[U // 3 : U // 3 + U // 8] = ids[: U // 8]
+    n_pad = min(5, U // 4)
+    ids[U - n_pad :] = 0
+    w = (rng.random((qb, U)) * 8.0).astype(np.float32)
+    w[rng.random((qb, U)) < (0.9 if U >= 1000 else 0.5)] = 0.0
+    w[:, U - n_pad :] = 0.0
+    sums = (rng.random(ntp) * 50.0 + 10.0).astype(np.float32)
+    sums[nt:] = 0.0
+    maxint = w.sum(axis=1)
+    return [torch.from_numpy(x).to(device) for x in (packed, ids, w, sums, maxint)]
+
+
+@pytest.mark.parametrize("U,qb,tb,ntp,nt,score_dtype", [
+    (37, 37, 128, 1 << 14, 15_950, "float32"),       # nt inside a tile, blocks wholly past it
+    (37, 128, 2048, 1 << 15, 20_000, "bfloat16"),
+    (1000, 128, 2048, 1 << 16, 60_000, "bfloat16"),
+    (1000, 37, 128, 1 << 16, 40_000, "bfloat16"),
+    (1000, 200, 128, (1 << 16) + 128, 65_600, "float32"),   # rows of 513 x 16 bytes
+    (3072, 128, 2048, 1 << 16, 65_000, "float32"),
+    (3072, 200, 2048, 1 << 16, 60_000, "bfloat16"),  # two query blocks
+    (3072, 37, 2048, 1 << 16, 1 << 16, "float32"),   # no padding title
 ])
-def test_kernel_d_matches_plain(cuda, tb, score_dtype, nt):
-    packed, union_ids, w, sums, maxint = _union_inputs(tb + nt, 37, 1536, 3000, 1 << 16, nt, cuda)
-    rows = jk.gather_rows(packed, union_ids)
-    before = jk.score_full.launches
-    out = jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype=score_dtype)
-    assert jk.score_full.launches == before + 1
-    plain = jk.score_full_plain(rows, jk.round_weights(w, score_dtype), sums, maxint, nt, tb=tb,
-                                out_dtype=jk.score_out_dtype(score_dtype))
+def test_kernel_d_matches_plain(cuda, U, qb, tb, ntp, nt, score_dtype):
+    packed, ids, w, sums, maxint = _d_inputs(U + qb + tb, qb, U, 4000, ntp, nt, cuda)
+    before = (jk.score_full.launches, jk.gather_rows.launches)
+    out = jk.score_full(packed, ids, w, sums, maxint, nt, tb=tb, score_dtype=score_dtype)
+    assert (jk.score_full.launches, jk.gather_rows.launches) == (before[0] + 1, before[1])
+    plain = jk.score_full_plain(jk.gather_rows_plain(packed, ids), jk.round_weights(w, score_dtype),
+                                sums, maxint, nt, tb=tb, out_dtype=jk.score_out_dtype(score_dtype))
     torch.cuda.synchronize()
-    assert out.dtype == plain.dtype
+    assert out.dtype == plain.dtype and out.shape == (qb, ntp)
+    vp, pp = jk.select_topk_permuted(plain, 100, tb)
     if score_dtype == "float32":
+        # exact products (0/1 bits times exact weight parts), f32 sums in
+        # another order
         torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-7)
+        sep = jk.untied_slots(vp, 1e-6)
     else:
         # one bf16 ulp: the two f32 sums may round to neighbouring bf16 values
         ulp = torch.exp2(torch.floor(torch.log2(plain.float().abs().clamp(min=1e-30))) - 7)
         assert ((out.float() - plain.float()).abs() <= ulp).all()
+        sep = jk.untied_slots(vp, float(2 * ulp.max()))
+    assert (out.float()[:, jk.unpermute_positions(torch.arange(ntp, device=cuda), tb) >= nt] == -1).all()
     vk, pk = jk.select_topk_permuted(out, 100, tb)
-    vp, pp = jk.select_topk_permuted(plain, 100, tb)
     if score_dtype == "float32":
-        sep = jk.untied_slots(vp, 1e-6)
         assert sep.float().mean() > 0.5
-        assert torch.equal(pk[sep], pp[sep])
+    else:
+        # bf16 scores keep 8 significant bits, so these inputs tie by design:
+        # 0.2-2.6 % of their top-100 slots stand two ulps clear
+        assert sep.any()
+    assert torch.equal(pk[sep], pp[sep])
 
 
-def test_kernel_e_matches_plain(cuda):
+def test_kernel_d_rejects_what_it_does_not_take(cuda):
+    packed, ids, w, sums, maxint = _d_inputs(0, 8, 64, 100, 1 << 12, 4000, cuda)
+    with pytest.raises(ValueError):                   # tiles of a multiple of 64 titles only
+        jk.score_full(packed, ids, w, sums, maxint, 4000, tb=32, score_dtype="float32")
+    with pytest.raises(ValueError):                   # an empty union
+        jk.score_full(packed, ids[:0], w[:, :0], sums, maxint, 4000, tb=2048, score_dtype="float32")
+    with pytest.raises(ValueError):
+        jk.score_full(packed, ids, w[:, 1:], sums, maxint, 4000, tb=2048, score_dtype="float32")
+
+
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+def test_kernel_e_matches_plain(cuda, score_dtype):
     qb, U, lq, nt, tb, k = 64, 2048, 40, 100_000, 2048, 100
-    packed, union_ids, w, sums, maxint = _union_inputs(5, qb, U, 4000, 1 << 17, nt, cuda)
+    packed, union_ids, _w, sums, _maxint = _d_inputs(5, qb, U, 4000, 1 << 17, nt, cuda)
     g = torch.Generator(device="cuda").manual_seed(9)
     w_pos = torch.sort(torch.rand((qb, U - 5), device=cuda, generator=g).argsort(dim=1)[:, :lq],
                        dim=1).values.to(torch.int32)
     w_pos[-3:, 20:] = U                                           # padding slots
     w_val = torch.rand((qb, lq), device=cuda, generator=g) * 6.0
+    # the real path's bound: at least every intersection
+    maxint = jk.densify_weights(w_pos, w_val, U).sum(dim=1) + 1.0
     args = (packed, sums, union_ids, w_pos, w_val, maxint, nt)
-    before = (jk.jaccard_topk_v1.launches, jk.gather_rows.launches, jk.score_full.launches)
-    vk, pk = jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype="float32")
-    assert (jk.jaccard_topk_v1.launches, jk.gather_rows.launches, jk.score_full.launches) == \
-        (before[0] + 1, before[1] + 1, before[2])
-    vp, pp = jk.jaccard_topk_v1_plain(*args, k=k, tb=tb, score_dtype="float32")
+    counters = (jk.jaccard_topk_v1, jk.gather_rows, jk.score_full)
+    before = [c.launches for c in counters]
+    vk, pk = jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype=score_dtype)
+    # E is D's kernel with the gather fused: no launch of C, none counted on D
+    assert [c.launches for c in counters] == [before[0] + 1, before[1], before[2]]
+    vp, pp = jk.jaccard_topk_v1_plain(*args, k=k, tb=tb, score_dtype=score_dtype)
     torch.cuda.synchronize()
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
     sep = jk.untied_slots(vp, 1e-6)

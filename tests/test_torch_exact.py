@@ -1,9 +1,9 @@
 """PyTorch port, exact retrieval: the packed index and the query-block
-planner, the plain versions of kernels C, D and E against the Pallas kernels
-in interpret mode, and the exact ``JaccardScorer`` against the JAX scorer
-(``pallas_interpret``, ``retrieval_mode="exact"``, no truth).  The CUDA
-kernels themselves are compared with their plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+planner, the CPU routes of kernels C, D (gather and scoring) and E against
+the Pallas kernels in interpret mode, and the exact ``JaccardScorer``
+against the JAX scorer (``pallas_interpret``, ``retrieval_mode="exact"``,
+no truth).  The CUDA kernels themselves are compared with their plain
+versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 from collections import Counter
 
@@ -105,10 +105,15 @@ def test_kernel_d_plain_matches_pallas_interpret(tb, score_dtype):
         jnp.asarray(maxint), jnp.asarray(union_ids), jnp.int32(nt), k=k, tb=tb, uc=32,
         score_dtype=score_dtype, interpret=True, recall_target=1.0, window_select=False,
     )
+    _check_d_against(vj, pj, packed, union_ids, w, sums, maxint, nt, k, tb, score_dtype)
+
+
+def _check_d_against(vj, pj, packed, union_ids, w, sums, maxint, nt, k, tb, score_dtype):
+    """Kernel D's CPU route (gather, then the plain scoring) and its exact
+    top-k against the reference's top-k (vj, pj)."""
     vj, pj = np.asarray(vj), np.asarray(pj)
-    rows = jk.gather_rows(torch.from_numpy(packed), torch.from_numpy(union_ids))
-    jacc = jk.score_full(rows, torch.from_numpy(w), torch.from_numpy(sums), torch.from_numpy(maxint),
-                         nt, tb=tb, score_dtype=score_dtype)
+    jacc = jk.score_full(*(torch.from_numpy(a) for a in (packed, union_ids, w, sums, maxint)), nt,
+                         tb=tb, score_dtype=score_dtype)
     assert jacc.dtype == (torch.float32 if score_dtype == "float32" else torch.bfloat16)
     vp, pp = jk.select_topk_permuted(jacc, k, tb)
     vp, pp = vp.numpy(), pp.numpy()
@@ -121,6 +126,27 @@ def test_kernel_d_plain_matches_pallas_interpret(tb, score_dtype):
         assert (np.abs(vp - vj) <= bf16_ulp(vj)).all()
 
 
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+def test_kernel_d_repeated_and_padding_ids_match_pallas_interpret(score_dtype):
+    """A union whose ids repeat, each copy weighted, and that holds padding
+    rows (id 0, no weight) inside and at its end: D reads every repeat as
+    the reference's gather does."""
+    qb, U, V, ntp, nt, k, tb = 12, 80, 200, 4096, 3950, 30, 2048
+    packed, union_ids, w, sums, maxint = union_inputs(21, qb, U, V, ntp, nt)
+    union_ids[10:30] = union_ids[40:60]
+    union_ids[0:3] = union_ids[3]
+    union_ids[60:64] = 0
+    w[:, 60:64] = 0.0
+    assert len(np.unique(union_ids)) < U - 25 and (w[:, 10:30] > 0).any()
+    jdt = jnp.float32 if score_dtype == "float32" else jnp.bfloat16
+    vj, pj = jaccard_topk_pallas_v2(
+        jnp.asarray(packed), jnp.asarray(permute_sums(sums, tb)), jnp.asarray(w).astype(jdt),
+        jnp.asarray(maxint), jnp.asarray(union_ids), jnp.int32(nt), k=k, tb=tb, uc=16,
+        score_dtype=score_dtype, interpret=True, recall_target=1.0, window_select=False,
+    )
+    _check_d_against(vj, pj, packed, union_ids, w, sums, maxint, nt, k, tb, score_dtype)
+
+
 @pytest.mark.parametrize("tb", [128, 2048])
 def test_kernel_d_exact_ties_positions_equal_everywhere(tb):
     qb, U, V, ntp, nt, k = 16, 64, 300, 4096, 3900, 60
@@ -130,10 +156,9 @@ def test_kernel_d_exact_ties_positions_equal_everywhere(tb):
         jnp.asarray(maxint), jnp.asarray(union_ids), jnp.int32(nt), k=k, tb=tb, uc=64,
         score_dtype="float32", interpret=True, recall_target=1.0, window_select=False,
     )
-    rows = jk.gather_rows(torch.from_numpy(packed), torch.from_numpy(union_ids))
     vp, pp = jk.select_topk_permuted(
-        jk.score_full(rows, torch.from_numpy(w), torch.from_numpy(sums), torch.from_numpy(maxint),
-                      nt, tb=tb, score_dtype="float32"), k, tb)
+        jk.score_full(*(torch.from_numpy(a) for a in (packed, union_ids, w, sums, maxint)), nt,
+                      tb=tb, score_dtype="float32"), k, tb)
     vj = np.asarray(vj)
     assert (~untied(vj, 0.0)).mean() > 0.9                   # almost every slot is tied
     np.testing.assert_array_equal(vp.numpy(), vj)
@@ -178,8 +203,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     w_pos = torch.arange(8, dtype=torch.int32).repeat(qb, 1)
     counters = (jk.gather_rows, jk.score_full, jk.jaccard_topk_v1)
     before = [f.launches for f in counters]
-    rows = jk.gather_rows(packed, union_ids)
-    jk.score_full(rows, w, sums, maxint, nt, tb=tb, score_dtype="bfloat16")
+    jk.gather_rows(packed, union_ids)
+    jk.score_full(packed, union_ids, w, sums, maxint, nt, tb=tb, score_dtype="bfloat16")
     jk.jaccard_topk_v1(packed, sums, union_ids, w_pos, w[:, :8], maxint, nt, k=5, tb=tb,
                        score_dtype="float32")
     assert [f.launches for f in counters] == before

@@ -155,3 +155,28 @@ def test_cuda_device_without_cuda_raises():
             resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device(None)
+
+
+@pytest.mark.parametrize("entry", ["Matcher", "JaccardScorer", "ExactEngine"])
+def test_entry_points_default_to_the_card(small_world, entry):
+    """Without a device, the entry points and the engines they build target
+    CUDA; where there is none they raise, with no CPU fallback."""
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.ops.jaccard import ExactEngine, JaccardScorer
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, _queries, _actual = small_world
+
+    def build():
+        if entry == "Matcher":
+            return Matcher(cfg, truth, GBTModel.load(str(MODEL))).device
+        if entry == "JaccardScorer":
+            return JaccardScorer(build_truth_index(truth, cfg), cfg, truth=truth).device
+        return ExactEngine(build_truth_index(truth, cfg), cfg, tb=2048).packed.device
+
+    if torch.cuda.is_available():
+        assert build().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
