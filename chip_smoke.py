@@ -12,13 +12,19 @@ Phases, each printing its seconds; any failure exits non-zero:
 3. kernel A (scoring with window select) against its plain PyTorch version
    at the folded path's shapes (QB=128, U=1024, folds=2, 524,288 titles,
    tb=2048, W=16) and at the exact path's largest union at 150k titles
-   (folds=1, U=3,072 gathered rows, 163,840 titles), each with bf16 and
-   with f32 weights: rtol 1e-5 against plain on the same rounded weights,
-   titles equal on untied windows; time, TFLOP/s and share of the bound.
+   (folds=1, a 3,072-row union of a random (50,653, 20,480) packed index,
+   163,840 titles, read through ``union_ids``), each with bf16 and with f32
+   weights: rtol 1e-5 against plain (gather and scoring) on the same
+   rounded weights, titles equal on untied windows; with ids, exactly equal
+   to A on the gathered rows, and timed beside kernel C followed by that
+   call; time, TFLOP/s and share of the bound.
 4. kernel B (sliding-window LCS) against its plain version at model-stage
-   shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.
+   shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.  After the
+   folded main path, once more on the arguments of the largest
+   ``window_best`` call that its untimed predict made.
 5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
-   index (500k titles), exactly equal to ``index_select``.
+   index (500k titles), exactly equal to ``index_select``.  The kernel and
+   its entry stay; ``Matcher.predict`` gathers inside A's and D's loads.
 6. kernel D (full Jaccard matrix, the union's rows read straight from the
    packed index): QB=128, U=3,072, 524,288 titles, tb=2048, in f32 (rtol
    1e-5) and with bf16 output (one bf16 ulp) against the plain gather and
@@ -34,10 +40,11 @@ Phases, each printing its seconds; any failure exits non-zero:
    one timed ``Matcher.predict``; kernels A and B must launch in the timed
    run, every stage must match rows and accuracy must reach 0.80.
 10. exact main path: 150,000 titles x 16,384 queries, default Config
-    (``auto`` resolves to exact: bf16, window select, so kernel C then A
-    with folds=1); the same checks, with C and A launching; then one more
-    predict under ``torch.profiler``: the top kernels by device time and
-    kernel A's share.
+    (``auto`` resolves to exact: bf16, window select, so kernel A with
+    folds=1 reading the union's rows through their ids); the same checks,
+    with A launching, every launch gathering, and C not at all; then one
+    more predict under ``torch.profiler``: the top kernels by device time
+    and kernel A's share.
 11. oracle anchor: the bench's exact-config oracle (f32, full matrix and
     exact top-k, model depth 0) on every 2nd query of the 500k world, the
     first 6,000; kernel D must launch and C and A must not, and the folded
@@ -53,11 +60,14 @@ The line before the last is a JSON object with every kernel's route,
 source, launches in the path that carries it, error, times, bound (the
 least time the card could take for what these inputs need, from the
 published H100 peaks: A, D and E count the products of nonzero weights
-only and read only the rows some query weights) and the
+only and read only the rows some query weights; B counts the LCS steps its
+words and queries need, three 32-bit operations each, and the bytes of
+the valid words only) and the
 time of one PyTorch call computing the same function where there is one;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -127,14 +137,11 @@ def contraction_need(w, ids, ntp, dt):
     return flop, ids[nz.any(dim=0)].unique().numel() * ntp // 8
 
 
-def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
-    """Kernel A against its plain version at one shape (QB=128, tb=2048,
-    W=16), with bf16 and with f32 weights: scores to rtol 1e-5 against
-    plain on the same rounded weights (the products are exact, only the
-    summation order differs), titles equal on untied windows.  Returns
-    {dtype: stats}."""
+def random_rows_inputs(torch, folds, U, ntp, nt, zero_share):
+    """Kernel A's inputs at the folded path's shapes: random rows u8 (U,
+    ntp/8) and one 128-query block of weights over them."""
     rng = torch.Generator(device="cuda").manual_seed(SEED)
-    qb, tb, W = 128, 2048, 16
+    qb = 128
     rows = (torch.rand((U, ntp), device="cuda", generator=rng) < 0.06)
     rows = (rows.view(U, ntp // 8, 8).to(torch.uint8)
             << torch.arange(8, device="cuda", dtype=torch.uint8)).sum(dim=2, dtype=torch.uint8)
@@ -144,17 +151,40 @@ def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
     sums[nt:] = 0.0
     # the bound is at least any intersection, as on the real path, so no
     # denominator comes near zero (where summation order alone moves scores)
-    maxint = w.sum(dim=1)
-    kw = dict(tb=tb, W=W, folds=folds)
+    return dict(rows=rows, ids=None, w=w, sums=sums, maxint=w.sum(dim=1), nt=nt, folds=folds)
+
+
+def check_kernel_a_at(torch, jk, label, d):
+    """Kernel A against its plain version at one shape (QB=128, tb=2048,
+    W=16), with bf16 and with f32 weights: scores to rtol 1e-5 against
+    plain on the same rounded weights (the products are exact, only the
+    summation order differs), titles equal on untied windows.  With
+    ``d["ids"]`` the rows are those of the packed index ``d["rows"]``: the
+    plain version gathers first, A reads them in its loads and must equal,
+    exactly, A on the gathered rows (the same sums in the same order), and
+    it is timed beside kernel C followed by that call.  Returns
+    {dtype: stats}."""
+    src, ids, w, sums, maxint, nt = (d[k] for k in ("rows", "ids", "w", "sums", "maxint", "nt"))
+    qb, U = w.shape
+    ntp = src.shape[1] * 8
+    kw = dict(tb=2048, W=16, folds=d["folds"])
+    rows = src if ids is None else jk.gather_rows_plain(src, ids)
     # the dense contraction A runs, for its TFLOP/s
     flop_dense = 2.0 * qb * ntp * U
     out = {}
     for dt in ("bfloat16", "float32"):
-        # the bound: the products and rows these weights need, the weights,
-        # sums and bound read once, window maxima and titles written once
-        flop, row_bytes = contraction_need(w, torch.arange(U, device="cuda"), ntp, dt)
-        nbytes = row_bytes + qb * U * 4 + ntp * 4 + qb * 4 + qb * (ntp // W) * 8
-        wk, ak = jk.score_window_select(rows, w, sums, maxint, nt, score_dtype=dt, **kw)
+        # the bound: the products and rows these weights need, the ids,
+        # weights, sums and bound read once, window maxima and titles
+        # written once
+        flop, row_bytes = contraction_need(w, torch.arange(U, device="cuda") if ids is None else ids,
+                                           ntp, dt)
+        nbytes = (row_bytes + (0 if ids is None else U * 4) + qb * U * 4 + ntp * 4 + qb * 4
+                  + qb * (ntp // kw["W"]) * 8)
+
+        def run():
+            return jk.score_window_select(src, w, sums, maxint, nt, score_dtype=dt, union_ids=ids, **kw)
+
+        wk, ak = run()
         wr = jk.round_weights(w, dt)
         wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw)
         torch.cuda.synchronize()
@@ -163,7 +193,7 @@ def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
         untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
         if not torch.equal(ak[untied], ap[untied]):
             raise AssertionError(f"kernel A {dt} ({label}) window titles differ from the plain version")
-        ms = cuda_ms(lambda: jk.score_window_select(rows, w, sums, maxint, nt, score_dtype=dt, **kw))
+        ms = cuda_ms(run)
         plain_ms = cuda_ms(lambda: jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw))
         bound_ms, bound_by = bound(flop, BF16_FLOP_PER_S, nbytes)
         st = {"shape": label, "dtype": dt, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -174,17 +204,35 @@ def check_kernel_a_at(torch, jk, label, folds, U, ntp, nt, zero_share):
               f"{plain_ms:.3f} ms per 128-query block; {st['tflops']:.1f} TFLOP/s of the dense "
               f"contraction it runs; bound {bound_ms:.3f} ms ({bound_by}: {int((w != 0).sum())} "
               f"nonzero weights), {100 * st['share_of_bound']:.1f} % of it", flush=True)
+        if ids is not None:
+            def unfused():
+                return jk.score_window_select(jk.gather_rows(src, ids), w, sums, maxint, nt,
+                                              score_dtype=dt, **kw)
+
+            wu, au = unfused()
+            torch.cuda.synchronize()
+            if not (torch.equal(wk, wu) and torch.equal(ak, au)):
+                raise AssertionError(f"kernel A {dt} ({label}) with ids differs from A on gathered rows")
+            st["unfused_ms"] = cuda_ms(unfused)
+            st["rows_only_ms"] = cuda_ms(lambda: jk.score_window_select(rows, w, sums, maxint, nt,
+                                                                        score_dtype=dt, **kw))
+            print(f"# kernel A {dt} ({label}): exactly equal to A on gathered rows; gathering in "
+                  f"its loads {ms:.3f} ms, kernel C then A {st['unfused_ms']:.3f} ms, A alone on "
+                  f"rows gathered before {st['rows_only_ms']:.3f} ms", flush=True)
         out[dt] = st
     return out
 
 
 def check_kernel_a(torch, jk):
     """At the folded path's shapes (the main numbers, bf16 as the default
-    config scores) and at the exact path's largest union at 150k titles."""
-    shapes = [check_kernel_a_at(torch, jk, "folds=2, U=1,024, 524,288 titles", 2, 1024, 524_288,
-                                500_000, 0.94),
-              check_kernel_a_at(torch, jk, "folds=1, U=3,072, 163,840 titles", 1, 3072, 163_840,
-                                150_000, 0.98)]
+    config scores) and at the exact path's largest union at 150k titles,
+    read from a packed index through its ids."""
+    shapes = [check_kernel_a_at(torch, jk, "folds=2, U=1,024, 524,288 titles",
+                                random_rows_inputs(torch, 2, 1024, 524_288, 500_000, 0.94))]
+    d = union_inputs(torch, ntp=163_840, nt=150_000)
+    d.update(rows=d["packed"], ids=d["union_ids"], folds=1,
+             w=jk.densify_weights(d["w_pos"], d["w_val"], d["union_ids"].shape[0]))
+    shapes.append(check_kernel_a_at(torch, jk, "folds=1, U=3,072 of 50,653 rows, 163,840 titles", d))
     main = shapes[0]["bfloat16"]
     res = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "tflops",
                                 "share_of_bound")}
@@ -194,23 +242,26 @@ def check_kernel_a(torch, jk):
 
 
 # kernels on the tensor cores: source -> (name, the mangled kernel's
-# template arguments, their description)
+# template arguments, their description, the HGMMA instructions its machine
+# code holds when no wgmma was lost or serialized away)
 TENSOR_CORE_KERNELS = {
     "score_window.cu": ("A", r"score_window_kernelILi(\d+)ELi(\d+)E",
-                        lambda m: f"{m.group(1)} weight part(s), folds={m.group(2)}"),
+                        lambda m: f"{m.group(1)} weight part(s), folds={m.group(2)}"
+                                  f"{', gathering' if m.group(2) == '1' else ''}", 192),
     "score_full.cu": ("D", r"score_full_kernelILi(\d+)E(f|13__nv_bfloat16)E",
                       lambda m: f"{m.group(1)} weight part(s), "
-                                f"{'f32' if m.group(2) == 'f' else 'bf16'} out"),
+                                f"{'f32' if m.group(2) == 'f' else 'bf16'} out", 120),
 }
 
 
 def check_tensor_cores(build, paths):
     """Print what ptxas said of kernels A and D (registers, spills) and fail
-    unless the machine code of each holds tensor-core instructions (HGMMA).
-    Returns {kernel name: HGMMA count}."""
+    if either spills or its machine code does not hold the tensor-core
+    instructions (HGMMA) it is written with.  Returns {kernel name: HGMMA
+    count}."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     counts = {}
-    for source, (name, pattern, describe) in TENSOR_CORE_KERNELS.items():
+    for source, (name, pattern, describe, want) in TENSOR_CORE_KERNELS.items():
         kernel = "?"
         for line in build.BUILD_LOG.get(source, "").splitlines():
             m = re.search(pattern, line)
@@ -219,13 +270,17 @@ def check_tensor_cores(build, paths):
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"# ptxas, kernel {name} ({kernel}): "
                       f"{line.replace('ptxas info    :', '').strip()}", flush=True)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and (int(spill.group(1)) or int(spill.group(2))):
+                raise AssertionError(f"kernel {name} ({kernel}) spills registers: {line.strip()}")
         sass = subprocess.run([cuobjdump, "-sass", paths[source]], capture_output=True, text=True,
                               check=True).stdout
         n = sum(line.split()[1].startswith("HGMMA") for line in sass.splitlines()
                 if "/*" in line and len(line.split()) > 1)
         print(f"# kernel {name} machine code: {n} HGMMA instructions", flush=True)
-        if n == 0:
-            raise AssertionError(f"kernel {name} does not use the tensor cores (no HGMMA in its SASS)")
+        if n != want:
+            raise AssertionError(f"kernel {name} holds {n} HGMMA instructions in its SASS, not the "
+                                 f"{want} it is written with")
         counts[name] = n
     return counts
 
@@ -265,10 +320,56 @@ def profile_predict(torch, matcher, queries, label, kernel, top=10):
         print(f"#   {ms:9.2f} ms {100 * ms / total:5.1f} % x{count:<6d} {key[:100]}", flush=True)
 
 
+# 32-bit operations of one LCS step: U = V & M; V = (V + U) | (V & ~M).  (The
+# step counted five, (V + U) | (V - U) and a mask, until the kernel took this
+# form; the five-operation share is printed beside the three-operation one.)
+LCS_STEP_OPS, LCS_STEP_OPS_BEFORE = 3, 5
+
+
+def check_kernel_b_on(torch, fk, args, label):
+    """Kernel B against its plain version on one set of arguments: exactly
+    equal; its time, the plain version's and the bound of the LCS steps
+    these words and queries need."""
+    chars, wlen, q_wo, q_wo_len = args
+    (B, W, WL), TL = chars.shape, q_wo.shape[1]
+    rk, pk = fk.window_best(*args)
+    rp, pp = fk.window_best_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(rk, rp) and torch.equal(pk, pp)):
+        raise AssertionError(f"kernel B differs from the plain version ({label})")
+    ms = cuda_ms(lambda: fk.window_best(*args))
+    plain = cuda_ms(lambda: fk.window_best_plain(*args))
+    # the LCS steps these inputs need: a word of length l against the
+    # e = min(qwol, TL) window starts steps min(l, e - p) characters from
+    # each start p
+    e = q_wo_len.clamp(min=0, max=TL)[:, None].to(torch.float64)
+    ln = wlen.clamp(min=0, max=32).to(torch.float64)
+    steps = torch.where(ln >= e, e * (e + 1) / 2, ln * (e - ln) + ln * (ln + 1) / 2)
+    live = (ln > 0) & (e > 0)
+    steps = float(torch.where(live, steps, torch.zeros_like(steps)).sum())
+    # bytes the function needs: the characters of the valid words (an empty
+    # slot's never reach the result), the text of a pair that has such a word
+    # up to its length, both lengths in full, and the two outputs
+    nbytes = (float(torch.where(live, ln.clamp(max=WL), torch.zeros_like(ln)).sum())
+              + float((e[:, 0] * live.any(dim=1)).sum())
+              + wlen.numel() * 4 + q_wo_len.numel() * 4 + B * W * 8)
+    bound_ms, bound_by = bound(LCS_STEP_OPS * steps, INT32_OPS_PER_S, nbytes)
+    before_ms, _ = bound(LCS_STEP_OPS_BEFORE * steps, INT32_OPS_PER_S, nbytes)
+    words = int((wlen > 0).sum())
+    print(f"# kernel B {label}: exactly equal; {ms:.3f} ms, plain {plain:.3f} ms ({B} pairs x {W} "
+          f"slots, {words} words, TL={TL}, WL={WL}); bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{steps:.3e} LCS steps x {LCS_STEP_OPS} operations, {nbytes / 1e6:.1f} MB), "
+          f"{100 * bound_ms / ms:.1f} % of it ({100 * before_ms / ms:.1f} % counting "
+          f"{LCS_STEP_OPS_BEFORE} operations a step, as the bound did before)", flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_5_ops": before_ms, "lcs_steps": steps, "pairs": B, "words": words, "tl": TL,
+            "wl": WL}
+
+
 def check_kernel_b(torch, fk):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     B, W, TL = 2048 * 32, 15, 64
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "library_ms": None}
     for WL in (16, 32):
         q_wo = torch.randint(2, 12, (B, TL), device="cuda", generator=g, dtype=torch.int32)
         q_wo_len = torch.randint(1, TL + 1, (B,), device="cuda", generator=g, dtype=torch.int32)
@@ -278,37 +379,42 @@ def check_kernel_b(torch, fk):
         chars = torch.randint(2, 12, (B, W, WL), device="cuda", generator=g, dtype=torch.int32)
         chars = torch.where(torch.arange(WL, device="cuda")[None, None] < wlen[:, :, None], chars, 0)
         args = (chars.to(torch.uint8).contiguous(), wlen, q_wo.contiguous(), q_wo_len)
-        rk, pk = fk.window_best(*args)
-        rp, pp = fk.window_best_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(rk, rp) and torch.equal(pk, pp)):
-            raise AssertionError(f"kernel B differs from the plain version at WL={WL}")
-        ms = cuda_ms(lambda: fk.window_best(*args))
-        plain = cuda_ms(lambda: fk.window_best_plain(*args))
-        # the LCS steps these inputs need: a word of length l against the
-        # e = min(qwol, TL) window starts steps min(l, e - p) characters
-        # from each start p, five 32-bit operations a step
-        e = q_wo_len.clamp(max=TL)[:, None].to(torch.float64)
-        ln = wlen.clamp(max=32).to(torch.float64)
-        steps = torch.where(ln >= e, e * (e + 1) / 2, ln * (e - ln) + ln * (ln + 1) / 2)
-        steps = float(torch.where((ln > 0) & (e > 0), steps, torch.zeros_like(steps)).sum())
-        nbytes = sum(a.numel() * a.element_size() for a in args) + B * W * 8
-        bound_ms, bound_by = bound(5 * steps, INT32_OPS_PER_S, nbytes)
-        print(f"# kernel B WL={WL}: exactly equal; {ms:.3f} ms, plain {plain:.3f} ms "
-              f"({B} pairs x {W} words, TL={TL}); bound {bound_ms:.3f} ms ({bound_by}: "
-              f"{steps:.3e} LCS steps, {nbytes / 1e6:.1f} MB)", flush=True)
-        out[f"ms_wl{WL}"], out[f"plain_ms_wl{WL}"] = ms, plain
-        out[f"bound_ms_wl{WL}"], out["bound_by"] = bound_ms, bound_by
-    out["ms"], out["plain_ms"], out["bound_ms"] = out["ms_wl32"], out["plain_ms_wl32"], out["bound_ms_wl32"]
-    out["library_ms"] = None
+        st = check_kernel_b_on(torch, fk, args, f"WL={WL}")
+        for k in ("ms", "plain_ms", "bound_ms", "bound_ms_5_ops"):
+            out[f"{k}_wl{WL}"] = st[k]
+        out["bound_by"] = st["bound_by"]
+    for k in ("ms", "plain_ms", "bound_ms"):
+        out[k] = out[f"{k}_wl32"]
     return out
 
 
-def union_inputs(torch):
-    """A random 500k-title packed index (3.3 GB) and one 128-query block over
-    a 3,072-row union of it: the exact path's shapes at 500k titles."""
+class LargestCall:
+    """Wraps a kernel wrapper inside ``module`` and keeps a copy of the
+    arguments of its largest call (by elements of the first argument)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.real = module, name, getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def wrapped(*args):
+            if self.args is None or args[0].numel() > self.args[0].numel():
+                self.args = tuple(a.clone() for a in args)
+            return self.real(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def union_inputs(torch, ntp=524_288, nt=500_000):
+    """A random packed index of ``ntp`` titles (3.3 GB at the default 500k)
+    and one 128-query block over a 3,072-row union of it: the exact path's
+    shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    V, ntp, nt, qb, U, lq = 50_653, 524_288, 500_000, 128, 3072, 64
+    V, qb, U, lq = 50_653, 128, 3072, 64
     packed = torch.randint(0, 256, (V, ntp // 8), device="cuda", generator=g, dtype=torch.uint8)
     union_ids = torch.randperm(V, device="cuda", generator=g)[:U].to(torch.int32)
     # each query holds lq trigrams of the union, padded past a per-query count
@@ -447,12 +553,12 @@ def check_small_world(torch, Matcher, make_world, model, cfg, label):
 
 
 def reset_counts(counters):
-    for c in counters.values():
-        c.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(counters):
-    return {name: c.launches for name, c in counters.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
 def check_prediction(res, actual, n):
@@ -466,8 +572,11 @@ def check_prediction(res, actual, n):
     return accuracy
 
 
-def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, need, label):
-    """One untimed and one timed predict; returns (matcher, result, launches)."""
+def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, need, label,
+                  untimed=None):
+    """One untimed and one timed predict; returns (matcher, result, launches).
+    ``untimed`` is a context manager entered around the untimed predict
+    only, so that what it does stays out of the timed one."""
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     t = time.time()
@@ -475,7 +584,8 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
     torch.cuda.synchronize()
     phase(f"{label}_matcher_init", t)
     t = time.time()
-    matcher.predict(queries)
+    with untimed or contextlib.nullcontext():
+        matcher.predict(queries)
     torch.cuda.synchronize()
     phase(f"{label}_predict_untimed", t)
     reset_counts(counters)
@@ -559,8 +669,12 @@ def main() -> int:
 
     model = GBTModel.load(MODEL)
     cfg0 = Config(data_path=os.path.join(ROOT, "data"))
-    counters = {"A": jk.score_window_select, "B": fk.window_best, "C": jk.gather_rows,
-                "D": jk.score_full, "E": jk.jaccard_topk_v1}
+    # launches of each kernel's wrapper; "A gathering" are those launches of
+    # A that read the union's rows through their ids
+    counters = {name: (fn, "launches") for name, fn in
+                (("A", jk.score_window_select), ("B", fk.window_best), ("C", jk.gather_rows),
+                 ("D", jk.score_full), ("E", jk.jaccard_topk_v1))}
+    counters["A gathering"] = (jk.score_window_select, "gathered")
 
     # ---- small worlds: card vs the plain CPU path ----
     t = time.time()
@@ -586,10 +700,17 @@ def main() -> int:
     t = time.time()
     cfg, truth, queries, actual = make_synthetic_world(N_TITLES, N_QUERIES, seed=SEED, config=cfg0)
     phase("folded_world", t)
-    folded, res, la = run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters,
-                                    ("A", "B"), "folded")
-    if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E")):
+    from doppelspeller_tpu_torch.ops import features
+
+    slab = LargestCall(features, "window_best")
+    folded, res, la = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
+                                    counters, ("A", "B"), "folded", untimed=slab)
+    if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E", "A gathering")):
         raise AssertionError(f"the 500k default config left the folded path: {la}")
+    t = time.time()
+    kb["slab"] = check_kernel_b_on(torch, fk, slab.args, "on the folded predict's largest slab")
+    del slab
+    phase("kernel_b_slab", t)
 
     # ---- exact main path: 150k titles ----
     t = time.time()
@@ -597,9 +718,11 @@ def main() -> int:
                                                                config=cfg0)
     phase("exact_world", t)
     exact, res_x, lx = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x, model,
-                                     counters, ("A", "B", "C"), "exact")
-    if exact.scorer.exact is None or lx["D"] or lx["E"]:
-        raise AssertionError(f"the 150k default config did not take exact retrieval with A: {lx}")
+                                     counters, ("A", "B"), "exact")
+    if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"]
+            or lx["A gathering"] != lx["A"]):
+        raise AssertionError(f"the 150k default config did not take exact retrieval with A "
+                             f"gathering in every launch and no launch of C: {lx}")
     unions = dict(sorted(exact.scorer.exact.union_sizes.items()))
     print(f"# exact union buckets in the timed predict (U: blocks): {json.dumps(unions)}", flush=True)
     t = time.time()
@@ -685,14 +808,29 @@ def main() -> int:
     kernels = [
         entry("score_window_select", "A", "score_window.cu", "jaccard_pallas.py:263",
               "folded main path (500k), bf16 weights; exact main path (150k) launched it "
-              f"{lx['A']} times", la, ka, hgmma=hgmma["A"],
+              f"{lx['A']} times, {lx['A gathering']} of them gathering: there its loads carry "
+              "kernel C's function (jaccard_pallas.py:29)", la, ka, hgmma=hgmma["A"],
               **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
-              "folded main path (500k)", la, kb),
+              f"folded main path (500k); exact main path (150k) launched it {lx['B']} times", la, kb,
+              **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
+        # C's function runs inside A's loads (exact main path) and D's (oracle
+        # anchor) since the gather was fused; its own kernel, timed here
+        # beside index_select, is launched by no path of Matcher.predict, and
+        # ``launches`` says so
         entry("gather_rows", "C", "gather_rows.cu", "jaccard_pallas.py:29",
-              "exact main path (150k)", lx, kc),
+              f"no path of Matcher.predict: gather_rows.cu's own kernel was launched {lx['C']} "
+              f"times by the exact main path (150k) and {lo['C']} by the oracle anchor; its "
+              "function runs fused into kernel A's loads (exact main path) and kernel D's "
+              "(oracle anchor), counted under gathering_launches",
+              lx, kc,
+              fused_into=["doppelspeller_tpu_torch/csrc/score_window.cu",
+                          "doppelspeller_tpu_torch/csrc/score_full.cu"],
+              gathering_launches={"exact main path (A)": lx["A gathering"],
+                                  "oracle anchor (D)": lo["D"]}),
         entry("score_full", "D", "score_full.cu", "jaccard_pallas.py:210",
-              "oracle anchor (500k, 6,000 queries), f32", lo, kd, hgmma=hgmma["D"],
+              "oracle anchor (500k, 6,000 queries), f32; every launch gathers: its loads carry "
+              "kernel C's function (jaccard_pallas.py:29)", lo, kd, hgmma=hgmma["D"],
               **{k: kd[k] for k in ("ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_by_bf16",
                                     "select_ms", "select_ms_bf16")}),
         entry("jaccard_topk_v1", "E", "score_full.cu", "jaccard_pallas.py:135",

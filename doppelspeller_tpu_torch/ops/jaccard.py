@@ -5,10 +5,10 @@ The JAX package's ``JaccardScorer`` with both of its engines:
 - **exact** (``ExactEngine``, the JAX ``_topk_multiblock`` with
   ``impl="pallas"``): per block of ``query_block`` queries, the union of
   their trigram ids is scored either with the per-window pre-selection
-  (``retrieval_window_select``, the default: kernel C gathers the union's
-  rows, kernel A scores them with ``folds=1``) or as the full matrix
-  (kernel D, which reads the union's rows straight from the packed index)
-  followed by an exact top-k.  ``"exact"`` takes it at any size,
+  (``retrieval_window_select``, the default: kernel A with ``folds=1``) or
+  as the full matrix (kernel D) followed by an exact top-k.  Both kernels
+  read the union's rows straight from the packed index, so no gathered
+  copy of them exists.  ``"exact"`` takes it at any size,
   ``"auto"`` below ``folded_min_titles`` or when no truth encodings are
   given;
 - **folded** (``ops/fold.py``): ``"folded"``, and ``"auto"`` at or above
@@ -66,6 +66,11 @@ class ExactEngine(nn.Module):
         f32, slot U standing for a query's unused trigram slots.  The
         union's own padding rows (id 0) get no weight."""
         dev = self.packed.device
+        # the kernels read packed[id] unchecked: hold the ids to the index
+        # here, where they are still on the host
+        V = self.packed.shape[0]
+        if plan.union_ids.size and not (0 <= plan.union_ids.min() and plan.union_ids.max() < V):
+            raise ValueError(f"union ids outside the packed index's {V} rows")
         uid = torch.from_numpy(plan.union_ids).to(dev).to(torch.int64)
         u = uid.shape[0]
         self.union_sizes[u] += 1
@@ -76,10 +81,10 @@ class ExactEngine(nn.Module):
         w = jk.densify_weights(wp, w_val, u)
         sd = self.cfg.score_dtype
         if self.cfg.retrieval_window_select:
-            rows = jk.gather_rows(self.packed, uid)
             W = max(self.tb // 128, 1)
-            wmax, warg = jk.score_window_select(rows, w, self.sums, maxint, self.nt,
-                                                tb=self.tb, W=W, folds=1, score_dtype=sd)
+            wmax, warg = jk.score_window_select(self.packed, w, self.sums, maxint, self.nt,
+                                                tb=self.tb, W=W, folds=1, score_dtype=sd,
+                                                union_ids=uid)
             return jk.select_topk_windowed(wmax, warg, k)
         jacc = jk.score_full(self.packed, uid, w, self.sums, maxint, self.nt, tb=self.tb,
                              score_dtype=sd)

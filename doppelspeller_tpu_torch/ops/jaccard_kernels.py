@@ -7,8 +7,11 @@ TPU kernels of ``doppelspeller_tpu/ops/jaccard_pallas.py``:
 
 - A ``score_window_select`` (``csrc/score_window.cu``) ↔ ``_score_kernel_v3``:
   scores fused with the per-window pre-selection; ``folds=2`` on the
-  folded path, ``folds=1`` on gathered union rows on the exact path.
-- C ``gather_rows`` (``csrc/gather_rows.cu``) ↔ ``_gather_rows_kernel``.
+  folded path; ``folds=1`` on the exact path, where it reads the union's
+  rows straight from the packed index (``union_ids``).
+- C ``gather_rows`` (``csrc/gather_rows.cu``) ↔ ``_gather_rows_kernel``: the
+  entry and its kernel; no path of ``Matcher.predict`` launches it, since A
+  and D gather in their own loads.
 - D ``score_full`` (``csrc/score_full.cu``) ↔ ``_score_kernel_v2`` with
   the union's row gather before it: the full (QB, ntp) Jaccard matrix, bf16
   out when scoring in bf16, else f32, reading the union's rows straight
@@ -32,7 +35,7 @@ the TPU that call is an exact top-k, so the port is exact everywhere.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -94,8 +97,8 @@ def _jaccard_chunks(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
         yield t0, torch.where(tpos[None, :] < nt, jacc, torch.full_like(jacc, -1.0))
 
 
-def _check_score_inputs(rows_u8, w, sums, maxint, folds: int) -> None:
-    U, nbytes = rows_u8.shape
+def _check_score_inputs(U: int, nbytes: int, rows_u8, w, sums, maxint, folds: int) -> None:
+    """Kernel A's inputs: U rows scored, of ``nbytes`` bytes each."""
     if rows_u8.dtype != torch.uint8 or w.dtype != torch.float32:
         raise TypeError("rows_u8 must be uint8 and w float32")
     if w.shape[1] != U or U % folds or sums.shape != (nbytes * 8,) or maxint.shape != (w.shape[0],):
@@ -203,29 +206,45 @@ def kernel_a_weights(w: torch.Tensor, folds: int, score_dtype: str) -> torch.Ten
 def score_window_select(
     rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor, maxint: torch.Tensor,
     nt: int, *, tb: int, W: int, folds: int, score_dtype: str,
+    union_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scores reduced per window.
 
     rows_u8 u8 (folds·C, ntp/8): stacked folded occupancy bits (folded
-    path) or gathered union rows with folds=1 (exact path); w f32 (QB,
-    folds·C) weights, sums f32 (ntp,), maxint f32 (QB,), nt real titles.
+    path) or a union's rows with folds=1; w f32 (QB, folds·C) weights, sums
+    f32 (ntp,), maxint f32 (QB,), nt real titles.  With ``union_ids`` (U,)
+    (exact path; folds=1 only, repeats and the padding id 0 allowed)
+    rows_u8 is the packed index u8 (V, ntp/8) and the rows scored are
+    ``rows_u8[union_ids]``, w f32 (QB, U).  The ids must lie in [0, V): the
+    kernel reads ``rows_u8[id]`` unchecked, as ``gather_rows`` does, and
+    ``ExactEngine.topk_block`` holds its plans to that on the host.
     Returns (wmax f32 (QB, ntp/W), warg_title i32 (QB, ntp/W)): window
     g = tile·S + s holds its max score and the global title of the first
-    offset reaching it.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, which takes tb = 2048, W = 16 (the only tiling any
-    path uses) and folds of 1 or 2."""
-    U, nbytes = rows_u8.shape
+    offset reaching it.  CPU tensors take the plain versions (gather, then
+    score); CUDA tensors launch the kernel, which takes tb = 2048, W = 16
+    (the only tiling any path uses) and folds of 1 or 2, and with
+    ``union_ids`` reads the union's rows straight from the packed index."""
+    if union_ids is not None:
+        if folds != 1:
+            raise ValueError(f"union_ids go with folds=1, got folds={folds}")
+        if union_ids.dim() != 1:
+            raise TypeError("union_ids must be 1-D")
+    if rows_u8.dim() != 2:
+        raise TypeError("rows_u8 must be a 2-D uint8 matrix")
+    nbytes = rows_u8.shape[1]
+    U = rows_u8.shape[0] if union_ids is None else union_ids.shape[0]
     ntp = nbytes * 8
     QB = w.shape[0]
-    _check_score_inputs(rows_u8, w, sums, maxint, folds)
+    _check_score_inputs(U, nbytes, rows_u8, w, sums, maxint, folds)
     if ntp % tb or tb % W:
         raise ValueError(f"title count {ntp} / tile {tb} / window {W} do not divide")
     if rows_u8.device.type == "cpu":
-        return score_window_select_plain(rows_u8, round_weights(w, score_dtype), sums, maxint, nt,
+        rows = rows_u8 if union_ids is None else gather_rows_plain(rows_u8, union_ids)
+        return score_window_select_plain(rows, round_weights(w, score_dtype), sums, maxint, nt,
                                          tb=tb, W=W, folds=folds)
-    if tb != 2048 or W != 16 or folds not in (1, 2):
-        raise ValueError(f"kernel A takes tb=2048, W=16 and folds 1 or 2, got tb={tb} W={W} "
-                         f"folds={folds}")
+    if tb != 2048 or W != 16 or folds not in (1, 2) or U == 0:
+        raise ValueError(f"kernel A takes tb=2048, W=16, folds 1 or 2 and at least one row, got "
+                         f"tb={tb} W={W} folds={folds} U={U}")
     if sums.dtype != torch.float32 or maxint.dtype != torch.float32:
         raise TypeError("sums and maxint must be float32")
     dev = rows_u8.device
@@ -234,18 +253,23 @@ def score_window_select(
     if QB == 0:
         return wmax, warg
     img = kernel_a_weights(w, folds, score_dtype)
-    _check_launch("kernel A", rows_u8, img, sums, maxint)
+    ids32 = None if union_ids is None else union_ids.to(torch.int32).contiguous()
+    _check_launch("kernel A", rows_u8, img, sums, maxint, *(() if ids32 is None else (ids32,)))
     rc = _build.lib().doppel_score_window_select(
-        rows_u8.data_ptr(), img.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
-        wmax.data_ptr(), warg.data_ptr(), QB, U // folds, folds, nbytes, img.shape[0],
-        ntp // tb, int(nt), torch.cuda.current_stream(dev).cuda_stream,
+        rows_u8.data_ptr(), None if ids32 is None else ids32.data_ptr(), img.data_ptr(),
+        sums.data_ptr(), maxint.data_ptr(), wmax.data_ptr(), warg.data_ptr(), QB, U // folds, folds,
+        nbytes, img.shape[0], ntp // tb, int(nt), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "doppel_score_window_select")
     score_window_select.launches += 1
+    if ids32 is not None:
+        score_window_select.gathered += 1
     return wmax, warg
 
 
+# launches of kernel A, and those among them that gathered (union_ids given)
 score_window_select.launches = 0
+score_window_select.gathered = 0
 
 
 def select_topk_windowed(wmax: torch.Tensor, warg_title: torch.Tensor, k: int):
@@ -355,7 +379,8 @@ def _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, out_dty
 def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
                maxint: torch.Tensor, nt: int, *, tb: int, score_dtype: str) -> torch.Tensor:
     """The full Jaccard matrix of a query block over the union rows
-    ``union_ids`` (U,) (repeats allowed) of the packed index u8 (V, ntp/8):
+    ``union_ids`` (U,) (repeats allowed, each in [0, V): the kernel reads
+    ``packed[id]`` unchecked) of the packed index u8 (V, ntp/8):
     w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp) in π
     column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU tensors
     gather and score with the plain versions; CUDA tensors launch the

@@ -8,8 +8,9 @@ Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
 ``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
 LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
-kernel).  D's and E's kernel reads the union's rows straight from the
-packed index; the tests hold it against the plain gather and scoring.
+kernel).  D's and E's kernel, and A with ``union_ids``, read the union's
+rows straight from the packed index; the tests hold them against the plain
+gather and scoring.
 """
 
 import numpy as np
@@ -90,6 +91,50 @@ def test_kernel_a_rejects_what_it_does_not_take(cuda):
         with pytest.raises(ValueError):
             jk.score_window_select(rows, w, sums, maxint, 100, tb=tb, W=W, folds=2,
                                    score_dtype="float32")
+
+
+@pytest.mark.parametrize("U,qb,ntp,nt,score_dtype", [
+    (37, 37, 1 << 14, 15_950, "float32"),        # nt inside a tile, tiles wholly past it
+    (37, 128, 1 << 15, 20_000, "bfloat16"),
+    (1000, 128, 1 << 16, 60_000, "bfloat16"),    # U not a multiple of the 64-row step
+    (1000, 200, 1 << 16, 65_536, "float32"),     # two query blocks, no padding title
+    (3072, 128, 1 << 16, 65_000, "float32"),
+    (3072, 200, 1 << 16, 60_000, "bfloat16"),
+])
+def test_kernel_a_gathers_the_union_rows(cuda, U, qb, ntp, nt, score_dtype):
+    """A with ``union_ids`` (repeated and padding ids) on the packed index:
+    bit-equal to A on the gathered rows (the same sums in the same order),
+    and equal to the plain gather and plain A as A is on rows."""
+    tb, W = 2048, 16
+    packed, ids, w, sums, maxint = _d_inputs(U + qb, qb, U, 4000, ntp, nt, cuda)
+    kw = dict(tb=tb, W=W, folds=1)
+    counters = (jk.score_window_select, jk.gather_rows)
+    before = [c.launches for c in counters] + [jk.score_window_select.gathered]
+    wk, ak = jk.score_window_select(packed, w, sums, maxint, nt, score_dtype=score_dtype,
+                                    union_ids=ids, **kw)
+    assert ([c.launches for c in counters] + [jk.score_window_select.gathered]
+            == [before[0] + 1, before[1], before[2] + 1])
+    rows = jk.gather_rows_plain(packed, ids)
+    wu, au = jk.score_window_select(rows, w, sums, maxint, nt, score_dtype=score_dtype, **kw)
+    assert jk.score_window_select.gathered == before[2] + 1       # no ids, none counted
+    wr = jk.round_weights(w, score_dtype)
+    wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(wk, wu) and torch.equal(ak, au)
+    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+    untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
+    assert untied.any()
+    assert torch.equal(ak[untied], ap[untied])
+
+
+def test_kernel_a_takes_ids_with_one_fold_only(cuda):
+    packed, ids, w, sums, maxint = _d_inputs(1, 8, 64, 100, 1 << 12, 4000, cuda)
+    with pytest.raises(ValueError):
+        jk.score_window_select(packed, w, sums, maxint, 4000, tb=2048, W=16, folds=2,
+                               score_dtype="float32", union_ids=ids)
+    with pytest.raises(ValueError):                   # an empty union
+        jk.score_window_select(packed, w[:, :0], sums, maxint, 4000, tb=2048, W=16, folds=1,
+                               score_dtype="float32", union_ids=ids[:0])
 
 
 @pytest.mark.parametrize("U,nbytes", [(1024, 8192), (37, 16), (3, 48)])
@@ -221,3 +266,80 @@ def test_kernel_b_matches_plain_exactly(cuda, TL, WL):
     torch.cuda.synchronize()
     assert torch.equal(rk, rp)
     assert torch.equal(pk, pp)
+
+
+def _b_edge_inputs(seed, B, TL, WL, device):
+    """Random pairs with the edges mixed in: empty pairs (qwol 0), qwol of 1,
+    TL and past TL, pairs with all 15 slots full, words of length 0, 1 and
+    WL, and a pair whose windows all tie (one repeated character)."""
+    rng = np.random.RandomState(seed)
+    q_wo = rng.randint(2, 9, (B, TL)).astype(np.uint8)
+    q_wo_len = rng.randint(0, TL + 1, B).astype(np.int32)
+    q_wo_len[:8] = [0, 1, TL, TL + 5, TL, 2, TL - 1, 0]
+    wlen = rng.randint(0, WL + 1, (B, 15)).astype(np.int32)
+    wlen[:, 6:] = 0
+    wlen[2:5] = rng.randint(1, WL + 1, (3, 15))          # every slot full
+    wlen[5, :4] = [WL, 1, 0, WL]
+    chars = rng.randint(2, 9, (B, 15, WL))
+    # windows that tie: the first p wins
+    q_wo[6], chars[6], wlen[6, :3] = 3, 3, [1, min(4, WL), min(WL, TL - 1)]
+    q_wo[np.arange(TL)[None, :] >= q_wo_len[:, None]] = 0
+    chars = (chars * (np.arange(WL) < wlen[:, :, None])).astype(np.uint8)
+    return [torch.from_numpy(x).to(device) for x in (chars, wlen, q_wo, q_wo_len)]
+
+
+@pytest.mark.parametrize("B,TL,WL", [
+    (3001, 16, 8), (3001, 32, 16), (1023, 64, 32), (9, 64, 16), (517, 32, 32), (3001, 64, 8),
+    (130, 96, 32),
+])
+def test_kernel_b_ragged_shapes_and_edges_match_plain_exactly(cuda, B, TL, WL):
+    args = _b_edge_inputs(B + TL + WL, B, TL, WL, cuda)
+    rk, pk = fk.window_best(*args)
+    rp, pp = fk.window_best_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp)
+    assert torch.equal(pk, pp)
+    assert (rk[0] == -1).all() and (pk[0] == 0).all()               # an empty query
+    assert (rk[2:5] >= 0).all()                                     # full slots
+    assert (pk[6, :3] == 0).all() and (rk[6, :3] == 100).all()      # ties keep p = 0
+
+
+def test_kernel_b_word_slots_beyond_a_warp(cuda):
+    """More word slots than lanes: the slots go in groups of 32."""
+    rng = np.random.RandomState(3)
+    B, W, TL, WL = 65, 40, 32, 16
+    q_wo = torch.from_numpy(rng.randint(2, 9, (B, TL)).astype(np.uint8)).to(cuda)
+    q_wo_len = torch.from_numpy(rng.randint(0, TL + 1, B).astype(np.int32)).to(cuda)
+    wlen = rng.randint(0, WL + 1, (B, W)).astype(np.int32)
+    chars = (rng.randint(2, 9, (B, W, WL)) * (np.arange(WL) < wlen[:, :, None])).astype(np.uint8)
+    args = (torch.from_numpy(chars).to(cuda), torch.from_numpy(wlen).to(cuda), q_wo, q_wo_len)
+    rk, pk = fk.window_best(*args)
+    rp, pp = fk.window_best_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(pk, pp)
+
+
+def test_kernel_b_every_length_and_common_count(cuda):
+    """Every word length 1..32 against every query length 1..64 with every
+    count k of characters the two share (the word is k times 'a', then 'b';
+    the query is all 'a'), so that every ratio the kernel's division can
+    meet is held against the plain version's."""
+    wl, ql, k = np.meshgrid(np.arange(1, 33), np.arange(1, 65), np.arange(0, 33), indexing="ij")
+    keep = k <= wl
+    wl, ql, k = wl[keep], ql[keep], k[keep]
+    n = -(-len(wl) // 15) * 15
+    wl, ql, k = (np.resize(a, n) for a in (wl, ql, k))
+    # the 15 slots of a pair share its query: sort so that they share ql
+    order = np.lexsort((k, wl, ql))
+    wl, ql, k = wl[order].reshape(-1, 15), ql[order].reshape(-1, 15), k[order].reshape(-1, 15)
+    q_len = ql[:, 0]
+    wl = np.where(ql == q_len[:, None], wl, 0)               # a slot of another query: empty
+    chars = np.where(np.arange(32) < k[:, :, None], 2, 3) * (np.arange(32) < wl[:, :, None])
+    q_wo = np.where(np.arange(64)[None, :] < q_len[:, None], 2, 0)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (chars.astype(np.uint8), wl.astype(np.int32), q_wo.astype(np.uint8), q_len.astype(np.int32))]
+    rk, pk = fk.window_best(*args)
+    rp, pp = fk.window_best_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp) and torch.equal(pk, pp)
+    assert len(torch.unique(rp)) > 90                        # of the 102 values -1..100

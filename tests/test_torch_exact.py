@@ -5,6 +5,7 @@ against the JAX scorer (``pallas_interpret``, ``retrieval_mode="exact"``,
 no truth).  The CUDA kernels themselves are compared with their plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
+import dataclasses
 from collections import Counter
 
 import jax.numpy as jnp
@@ -271,3 +272,58 @@ def test_exact_scorer_duplicate_titles_tie_order(world):
     np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=1e-6)
     assert (~untied(vj, 0.0)).mean() > 0.5
     np.testing.assert_array_equal(pp, pj)
+
+
+def test_default_exact_block_equals_jax_and_never_calls_gather_rows(world, monkeypatch):
+    """``ExactEngine.topk_block`` under the default config (bf16 weights,
+    window select) hands kernel A the packed index and the union's ids: it
+    equals the JAX scorer, positions exact wherever the scores are untied,
+    and ``gather_rows`` is never called."""
+    jcfg, jtruth, _train, jtest, _actual = world
+    jcfg = jcfg.with_(retrieval_mode="exact", retrieval_impl="pallas_interpret",
+                      score_dtype="bfloat16")               # the default, which the world overrides
+    assert jcfg.retrieval_window_select
+    cfg = port_config(jcfg)
+    truth = TitleSet.from_titles(jtruth.titles, ids=jtruth.ids, config=cfg)
+    test = TitleSet.from_titles(jtest.titles, ids=jtest.ids, config=cfg)
+    js = JScorer(j_build_index(jtruth, jcfg), jcfg)
+    ps = JaccardScorer(build_truth_index(truth, cfg), cfg, "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the exact path called gather_rows")
+
+    monkeypatch.setattr(jk, "gather_rows", refuse)
+    seen = []
+    real = jk.score_window_select
+
+    def spy(rows_u8, *args, union_ids=None, **kwargs):
+        seen.append((rows_u8.data_ptr(), None if union_ids is None else union_ids.shape[0]))
+        return real(rows_u8, *args, union_ids=union_ids, **kwargs)
+
+    monkeypatch.setattr(jk, "score_window_select", spy)
+    k = jcfg.top_n_predicting
+    plans = plan_query_blocks(test, ps.index, cfg)
+    vp, pp = zip(*(ps.exact.topk_block(p, k) for p in plans))
+    assert seen == [(ps.exact.packed.data_ptr(), p.union_ids.shape[0]) for p in plans]
+    vp = np.concatenate([v.numpy()[: p.n_valid] for v, p in zip(vp, plans)])
+    pp = np.concatenate([x.numpy()[: p.n_valid] for x, p in zip(pp, plans)])
+    vj, pj = js.topk(jtest, k=k)
+    # bf16 weights, f32 sums in another order
+    np.testing.assert_allclose(vp, vj, rtol=1e-5, atol=1e-6)
+    mask = untied(vj, 1e-6)
+    assert mask.mean() > 0.3
+    np.testing.assert_array_equal(pp[mask], pj[mask])
+
+
+@pytest.mark.parametrize("window_select", [False, True])
+@pytest.mark.parametrize("bad", [-1, "V"])
+def test_exact_block_refuses_union_ids_outside_the_index(exact_scorers, window_select, bad):
+    """The kernels read ``packed[id]`` unchecked, so ``topk_block`` holds a
+    plan's ids to [0, V) while they are on the host."""
+    _jcfg, _jtest, test, scorers = exact_scorers
+    _js, ps = scorers[window_select]
+    plan = plan_query_blocks(test, ps.index, ps.cfg)[0]
+    ids = plan.union_ids.copy()
+    ids[-1] = ps.exact.packed.shape[0] if bad == "V" else bad
+    with pytest.raises(ValueError, match="outside the packed index"):
+        ps.exact.topk_block(dataclasses.replace(plan, union_ids=ids), 10)

@@ -1,6 +1,7 @@
 """PyTorch port, model-stage features: kernel B's plain version against the
-Pallas kernel in interpret mode (exactly), and all 66 features against the
-JAX ``_features_kernel``."""
+Pallas kernel in interpret mode (exactly, at random shapes and at the
+edges), the CUDA kernel's LCS step against the reference's, and all 66
+features against the JAX ``_features_kernel``."""
 
 import random
 import string
@@ -13,7 +14,7 @@ import torch
 from doppelspeller_tpu.ops.features import _features_kernel
 from doppelspeller_tpu.ops.features_pallas import window_best_pallas
 from doppelspeller_tpu_torch.ops import features as F
-from doppelspeller_tpu_torch.ops.features_kernels import window_best
+from doppelspeller_tpu_torch.ops.features_kernels import window_best, window_best_plain
 from doppelspeller_tpu_torch.utils import text as T
 
 
@@ -36,6 +37,66 @@ def test_kernel_b_plain_matches_pallas_interpret(TL, WL):
     np.testing.assert_array_equal(np.asarray(r_j), r_p.numpy())
     np.testing.assert_array_equal(np.asarray(p_j), p_p.numpy())
     assert (r_p.numpy() == -1).any() and (r_p.numpy() > 0).any()
+
+
+def _edge_b_inputs(TL, WL):
+    """One pair per edge: qwol 0, 1 and TL; every slot empty; all 15 slots
+    full, of lengths 1..WL; words of length WL (32: the whole u32);
+    windows that all tie (one repeated character)."""
+    rng = np.random.RandomState(TL * WL)
+    B = 8
+    q_wo = rng.randint(2, 6, (B, TL)).astype(np.uint8)
+    q_wo_len = np.array([0, 1, TL, TL, TL, 7, TL - 1, TL // 2], np.int32)
+    wlen = rng.randint(1, WL + 1, (B, 15)).astype(np.int32)
+    wlen[:, 5:] = 0
+    wlen[3] = 0                                              # no word at all
+    wlen[4] = 1 + np.arange(15) % WL                         # every slot full
+    wlen[2, :3] = [WL, 1, WL]
+    wlen[5, :2] = [WL, 1]
+    chars = rng.randint(2, 6, (B, 15, WL))
+    q_wo[6], chars[6], wlen[6, :3] = 3, 3, [1, min(4, WL), min(WL, TL - 1)]
+    q_wo[np.arange(TL)[None, :] >= q_wo_len[:, None]] = 0
+    chars = (chars * (np.arange(WL) < wlen[:, :, None])).astype(np.uint8)
+    return chars, wlen, q_wo, q_wo_len
+
+
+@pytest.mark.parametrize("TL,WL", [(32, 32), (64, 32), (64, 16), (16, 8)])
+def test_kernel_b_plain_matches_pallas_interpret_at_the_edges(TL, WL):
+    """Exact equality, ratios and positions."""
+    args = _edge_b_inputs(TL, WL)
+    r_j, p_j = window_best_pallas(*(jnp.asarray(a) for a in args), interpret=True)
+    r_p, p_p = window_best_plain(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(np.asarray(r_j), r_p.numpy())
+    np.testing.assert_array_equal(np.asarray(p_j), p_p.numpy())
+    r, p = r_p.numpy(), p_p.numpy()
+    assert (r[0] == -1).all() and (p[0] == 0).all()          # an empty query
+    assert (r[3] == -1).all() and (p[3] == 0).all()          # no word
+    assert (r[4] >= 0).all()                                 # 15 full slots
+    assert (r[6, :3] == 100).all() and (p[6, :3] == 0).all() # ties keep the first window
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_three_operation_lcs_step_equals_the_reference_step(seed):
+    """The CUDA kernel's step, U = V & M; V = (V + U) | (V & ~M) with the
+    word mask applied once at the end, against the reference's
+    V = ((V + U) | (V − U)) & mask on every step: equal on random 32-bit
+    masks, match words and word lengths 1..32, step after step."""
+    g = torch.Generator().manual_seed(seed)
+    n, steps = 4096, 40
+    wlen = torch.randint(1, 33, (n,), generator=g)
+    mask = (torch.ones(n, dtype=torch.int64) << wlen) - 1
+    v_ref = mask.clone()
+    v_new = mask.clone()
+    for _ in range(steps):
+        # the kernel's table may hold bits past the word; the reference's never act there
+        m = torch.randint(0, 1 << 32, (n,), generator=g) & torch.randint(0, 1 << 32, (n,), generator=g)
+        u = v_ref & m
+        v_ref = ((v_ref + u) | (v_ref - u)) & mask
+        # u32 arithmetic held in int64: the sum wraps at 32 bits
+        v_new = ((v_new + (v_new & m)) | (v_new & ~m)) & 0xFFFFFFFF
+        assert torch.equal(v_new & mask, v_ref)
+        assert int(v_new.max()) < 1 << 32 and int(v_new.min()) >= 0
+    assert (v_ref != mask).any()
 
 
 def _pairs(seed, n, long_word=False):

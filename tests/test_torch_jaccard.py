@@ -16,6 +16,7 @@ from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.ops import jaccard as jaccard_module
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.jaccard_kernels import (
+    gather_rows,
     kernel_a_weights,
     score_window_select,
     score_window_select_plain,
@@ -226,3 +227,48 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     score_window_select(torch.from_numpy(rows), torch.from_numpy(w), torch.from_numpy(sums),
                         torch.from_numpy(maxint), 2000, tb=2048, W=16, folds=2, score_dtype="float32")
     assert score_window_select.launches == before
+
+
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("U", [64, 83, 130])
+def test_kernel_a_with_union_ids_equals_the_call_on_gathered_rows(U, score_dtype):
+    """``score_window_select`` on the packed index with ``union_ids`` (ids
+    that repeat, the padding id 0 inside and at the end, U off the 64-row
+    step) equals, exactly, the call on the gathered rows."""
+    qb, V, ntp, nt, tb, W = 9, 300, 4096, 4000, 2048, 16
+    rng = np.random.default_rng(U)
+    packed = rng.integers(0, 256, (V, ntp // 8), dtype=np.uint8)
+    ids = rng.integers(1, V, U).astype(np.int32)
+    ids[5:15] = ids[20:30]                                   # repeats, each copy weighted
+    ids[40:43] = 0
+    ids[U - 4:] = 0
+    w = (rng.random((qb, U)) * 3.0).astype(np.float32)
+    w[rng.random((qb, U)) < 0.8] = 0.0
+    w[:, 40:43] = 0.0
+    w[:, U - 4:] = 0.0
+    sums = (rng.random(ntp) * 40.0 + 5.0).astype(np.float32)
+    sums[nt:] = 0.0
+    packed, ids, w, sums, maxint = (torch.from_numpy(a) for a in
+                                    (packed, ids, w, sums, w.sum(axis=1)))
+    kw = dict(tb=tb, W=W, folds=1, score_dtype=score_dtype)
+    before = (score_window_select.launches, score_window_select.gathered, gather_rows.launches)
+    wi, ai = score_window_select(packed, w, sums, maxint, nt, union_ids=ids, **kw)
+    wr, ar = score_window_select(packed[ids.long()], w, sums, maxint, nt, **kw)
+    assert wi.shape == (qb, ntp // W)
+    assert torch.equal(wi, wr) and torch.equal(ai, ar)
+    assert (wi > 0).any()
+    # CPU tensors: the plain versions, no launch counted anywhere
+    assert before == (score_window_select.launches, score_window_select.gathered,
+                      gather_rows.launches)
+
+
+def test_kernel_a_union_ids_need_one_fold_and_matching_weights():
+    rows, w, sums, maxint = (torch.from_numpy(a) for a in _kernel_inputs(2, 4, 32, 2, 2048, 2000))
+    ids = torch.arange(64, dtype=torch.int32)
+    kw = dict(tb=2048, W=16, score_dtype="float32")
+    with pytest.raises(ValueError):
+        score_window_select(rows, w, sums, maxint, 2000, folds=2, union_ids=ids, **kw)
+    with pytest.raises(ValueError):                          # w has 64 columns, the union 10 ids
+        score_window_select(rows, w, sums, maxint, 2000, folds=1, union_ids=ids[:10], **kw)
+    with pytest.raises(TypeError):
+        score_window_select(rows, w, sums, maxint, 2000, folds=1, union_ids=ids[None], **kw)
