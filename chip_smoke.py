@@ -21,7 +21,8 @@ Phases, each printing its seconds; any failure exits non-zero:
 4. kernel B (sliding-window LCS) against its plain version at model-stage
    shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.  After the
    folded main path, once more on the arguments of the largest
-   ``window_best`` call that its untimed predict made.
+   ``window_best`` call that its untimed predict made; in the train phase
+   on every call that training made.
 5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
    index (500k titles), exactly equal to ``index_select``.  The kernel and
    its entry stay; ``Matcher.predict`` gathers inside A's and D's loads.
@@ -33,25 +34,44 @@ Phases, each printing its seconds; any failure exits non-zero:
 7. kernel E (the v1 entry over D's kernel) at the same shapes, f32.
 8. small worlds: the port on the card against the port's plain CPU path
    (the path the CPU tests hold equal to the JAX package) on a 4,096-title
-   world, folded in f32 and exact under the default config.
-9. folded main path: 500,000 titles x 16,384 queries (the bench world,
+   world, folded in f32 and exact under the default config; with the
+   latter's Matchers also a 100-query predict under the default
+   ``cascade_impl`` (under 2,048 rows: every candidate scored, no waves)
+   against the CPU run, and one ``predict(single=True)`` that must match.
+9. train: ``synthetic.quick_train_model`` with 60 rounds on the card, on
+   the first 50,000 titles of the 500k world (the call that made the
+   committed model): exact retrieval for 2,000 train rows (kernel A, every
+   launch gathering), the feature matrix of all pairs (kernel B), 60
+   boosting rounds.  Both kernels must launch and the model must hold 60
+   trees; prints the four timings, the pairs by kind, the last custom
+   errors, both AUCs, peak memory and how many trees equal the committed
+   model's.  Every call of A and of B that training made is then held
+   against the plain version on the same arguments (B exactly; A to rtol
+   1e-5 against the plain gather and scoring, titles equal on untied
+   windows), and the largest call of each shape is timed.  The run's
+   features (2,048 sampled pairs, 1e-5) and its first tree (every row; its
+   f32 sums are exact, so it must be equal) are held against the port's
+   CPU path.  After the folded main path its Matcher takes this model
+   (``set_model``) and predicts the same 16,384 queries: accuracy must
+   reach 0.80; its distance to the committed model's is printed.
+10. folded main path: 500,000 titles x 16,384 queries (the bench world,
    seed 7), the committed 60-tree model, default Config (folded two-hash
    retrieval, bf16 coarse weights, adaptive model depth); one untimed and
    one timed ``Matcher.predict``; kernels A and B must launch in the timed
    run, every stage must match rows and accuracy must reach 0.80.
-10. exact main path: 150,000 titles x 16,384 queries, default Config
+11. exact main path: 150,000 titles x 16,384 queries, default Config
     (``auto`` resolves to exact: bf16, window select, so kernel A with
     folds=1 reading the union's rows through their ids); the same checks,
     with A launching, every launch gathering, and C not at all; then one
     more predict under ``torch.profiler``: the top kernels by device time
     and kernel A's share.
-11. oracle anchor: the bench's exact-config oracle (f32, full matrix and
+12. oracle anchor: the bench's exact-config oracle (f32, full matrix and
     exact top-k, model depth 0) on every 2nd query of the 500k world, the
     first 6,000; kernel D must launch and C and A must not, and the folded
     path's accuracy on the sample must be within 0.01 of the oracle's; then
     one more oracle predict under ``torch.profiler``: the top kernels by
     device time and kernel D's share.
-12. v1 path: the same sample's query blocks through the v1 entry (kernel
+13. v1 path: the same sample's query blocks through the v1 entry (kernel
     E, with the planner's weights and bound), launched once per block with
     no launch of C, which must agree with the oracle engine's kernel D
     retrieval.
@@ -85,6 +105,7 @@ N_TITLES, N_QUERIES, SEED = 500_000, 16_384, 7
 N_TITLES_EXACT = 150_000
 ORACLE_QUERIES, ORACLE_DELTA = 6000, 0.01
 ACCURACY_FLOOR = 0.80
+TRAIN_ROUNDS = 60
 # published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores
 # (an exact f32 contraction counts three bf16 passes), HBM; 32-bit integer
 # operations at one per FP32 lane and clock (half the 67 TFLOP/s FP32 rate,
@@ -326,10 +347,10 @@ def profile_predict(torch, matcher, queries, label, kernel, top=10):
 LCS_STEP_OPS, LCS_STEP_OPS_BEFORE = 3, 5
 
 
-def check_kernel_b_on(torch, fk, args, label):
+def check_kernel_b_on(torch, fk, args, label, plain_calls=5):
     """Kernel B against its plain version on one set of arguments: exactly
-    equal; its time, the plain version's and the bound of the LCS steps
-    these words and queries need."""
+    equal; its time, the plain version's (the median of ``plain_calls``
+    calls) and the bound of the LCS steps these words and queries need."""
     chars, wlen, q_wo, q_wo_len = args
     (B, W, WL), TL = chars.shape, q_wo.shape[1]
     rk, pk = fk.window_best(*args)
@@ -338,7 +359,7 @@ def check_kernel_b_on(torch, fk, args, label):
     if not (torch.equal(rk, rp) and torch.equal(pk, pp)):
         raise AssertionError(f"kernel B differs from the plain version ({label})")
     ms = cuda_ms(lambda: fk.window_best(*args))
-    plain = cuda_ms(lambda: fk.window_best_plain(*args))
+    plain = cuda_ms(lambda: fk.window_best_plain(*args), reps=plain_calls, calls=1)
     # the LCS steps these inputs need: a word of length l against the
     # e = min(qwol, TL) window starts steps min(l, e - p) characters from
     # each start p
@@ -388,21 +409,28 @@ def check_kernel_b(torch, fk):
     return out
 
 
-class LargestCall:
-    """Wraps a kernel wrapper inside ``module`` and keeps a copy of the
-    arguments of its largest call (by elements of the first argument)."""
+class Spy:
+    """Stands in for the function ``name`` of ``module`` and keeps every
+    call's (args, kwargs, result), by reference.  Attributes go through to
+    the function, so a wrapper that counts its launches on itself
+    (``fn.launches += 1``) goes on counting there."""
 
     def __init__(self, module, name):
-        self.module, self.name, self.real = module, name, getattr(module, name)
-        self.args = None
+        self.__dict__.update(module=module, name=name, real=getattr(module, name), calls=[])
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+    def __getattr__(self, key):
+        return getattr(self.real, key)
+
+    def __setattr__(self, key, value):
+        setattr(self.real, key, value)
 
     def __enter__(self):
-        def wrapped(*args):
-            if self.args is None or args[0].numel() > self.args[0].numel():
-                self.args = tuple(a.clone() for a in args)
-            return self.real(*args)
-
-        setattr(self.module, self.name, wrapped)
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
@@ -537,11 +565,14 @@ def check_kernel_e(torch, jk, d):
     return res
 
 
-def check_small_world(torch, Matcher, make_world, model, cfg, label):
+def check_small_world(torch, Matcher, make_world, model, cfg, label, small_batch=False):
     _, truth, queries, _ = make_world(4096, 512, seed=SEED, config=cfg)
-    r_cpu = Matcher(cfg, truth, model, device="cpu").predict(queries)
+    m_cpu = Matcher(cfg, truth, model, device="cpu")
+    r_cpu = m_cpu.predict(queries)
     m_gpu = Matcher(cfg, truth, model, device="cuda")
     r_gpu = m_gpu.predict(queries)
+    if small_batch:
+        check_small_batch(m_cpu, m_gpu, queries, cfg)
     same = (r_cpu.match_title_id == r_gpu.match_title_id) & (r_cpu.stage == r_gpu.stage)
     engine = "exact" if m_gpu.scorer.exact is not None else "folded"
     print(f"# small world ({label}, {engine} retrieval): card agrees with the plain CPU path on "
@@ -550,6 +581,193 @@ def check_small_world(torch, Matcher, make_world, model, cfg, label):
     if same.mean() < 0.99:
         raise AssertionError(f"card and plain CPU path disagree on the small world ({label})")
     return engine
+
+
+def check_small_batch(m_cpu, m_gpu, queries, cfg):
+    """100 queries under the config's ``cascade_impl`` (``"auto"``: under
+    2,048 rows every candidate is scored in one wave): the card against the
+    CPU run row for row, at the small world's tolerance; then one
+    ``predict(single=True)`` of a query the model stage decides."""
+    from doppelspeller_tpu_torch.pipeline import STAGE_MODEL
+    from doppelspeller_tpu_torch.utils.io import TitleSet
+
+    few = TitleSet.from_titles(queries.titles[:100], ids=queries.ids[:100], config=cfg)
+    waves = []
+    decide = m_gpu.rerank.decide
+
+    def spy(*args, **kwargs):
+        waves.append((kwargs.get("narrow", 0), kwargs.get("col_lo", 0)))
+        return decide(*args, **kwargs)
+
+    m_gpu.rerank.decide = spy
+    try:
+        r_gpu = m_gpu.predict(few)
+    finally:
+        del m_gpu.rerank.decide
+    r_cpu = m_cpu.predict(few)
+    same = (r_cpu.match_title_id == r_gpu.match_title_id) & (r_cpu.stage == r_gpu.stage)
+    if same.mean() < 0.99 or set(waves) != {(0, 0)}:
+        raise AssertionError(f"small batch: card and CPU agree on {int(same.sum())}/100 rows, "
+                             f"model waves (narrow, col_lo) {sorted(set(waves))}")
+    row = int(np.flatnonzero(r_gpu.stage == STAGE_MODEL)[0])
+    one = TitleSet.from_titles([few.titles[row]], config=cfg)
+    single = m_gpu.predict(one, single=True).single_result()
+    if single["match_title_id"] != int(r_gpu.match_title_id[row]) or single["prediction"] <= 0:
+        raise AssertionError(f"predict(single=True) did not return the batch's match: {single}")
+    print(f"# small batch (100 queries, cascade_impl={cfg.cascade_impl!r}): card agrees with the CPU "
+          f"path on {int(same.sum())}/100 rows, every candidate scored in one wave "
+          f"({len(waves)} model calls); predict(single=True) matched title "
+          f"{single['match_title_id']} at {single['prediction']:.4f}", flush=True)
+
+
+def check_train_kernels(torch, jk, fk, calls_a, calls_b):
+    """Kernels A and B against their plain versions on every call the
+    training made: what the kernel returned there (the values training
+    went on with) beside the plain version on the same arguments.  B exactly
+    equal; A, which gathers the union's rows from the packed index in its
+    loads, to rtol 1e-5 against the plain gather and scoring on the same
+    rounded weights, titles equal on untied windows.  Then the largest call
+    of each is timed (B once per distinct (TL, WL)).  Returns the stats."""
+    shapes_b = {}
+    for args, _, (rk, pk) in calls_b:
+        rp, pp = fk.window_best_plain(*args)
+        if not (torch.equal(rk, rp) and torch.equal(pk, pp)):
+            raise AssertionError(f"kernel B differed from its plain version in training at "
+                                 f"{tuple(args[0].shape)} x TL={args[2].shape[1]}")
+        key = (args[2].shape[1], args[0].shape[2])
+        if key not in shapes_b or args[0].shape[0] > shapes_b[key][0].shape[0]:
+            shapes_b[key] = args
+    stats_b = [check_kernel_b_on(torch, fk, args, f"in training, TL={tl}, WL={wl}", plain_calls=1)
+               for (tl, wl), args in sorted(shapes_b.items())]
+
+    unions, n_untied, largest = {}, 0, None
+    for (packed, w, sums, maxint, nt), kw, (wk, ak) in calls_a:
+        kw = dict(kw)
+        ids, dt = kw.pop("union_ids"), kw.pop("score_dtype")
+        rows, wr = jk.gather_rows_plain(packed, ids), jk.round_weights(w, dt)
+        wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw)
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
+        untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
+        if not torch.equal(ak[untied], ap[untied]):
+            raise AssertionError(f"kernel A's window titles differed from the plain version in "
+                                 f"training at U={ids.shape[0]}")
+        n_untied += int(untied.sum())
+        unions[ids.shape[0]] = unions.get(ids.shape[0], 0) + 1
+        if largest is None or ids.shape[0] > largest["ids"].shape[0]:
+            largest = dict(rows=packed, ids=ids, w=w, sums=sums, maxint=maxint, nt=nt,
+                           folds=kw["folds"])
+    print(f"# train: kernel B exactly equal to its plain version on all {len(calls_b)} calls "
+          f"((TL, WL): {sorted(shapes_b)}); kernel A within rtol 1e-5 of the plain gather and "
+          f"scoring on all {len(calls_a)} calls (U: calls {json.dumps(dict(sorted(unions.items())))}), "
+          f"titles equal on {n_untied} untied windows", flush=True)
+    V, nbytes = largest["rows"].shape
+    stats_a = check_kernel_a_at(torch, jk, f"in training, folds=1, U={largest['ids'].shape[0]:,} of "
+                                           f"{V:,} rows, {nbytes * 8:,} titles", largest)
+    return {"A": list(stats_a.values()), "A_unions": unions, "B": stats_b}
+
+
+def check_training_against_cpu(torch, trainer, gbt, features_call, boosting_call):
+    """The card's training against the port's CPU path (which the CPU tests
+    hold to the JAX package) on the run's own pairs.  The features of 2,048
+    sampled pairs: NaNs in the same places, values to 1e-5.  The first tree
+    on every row: at the base score ``g`` and ``h`` are multiples of 1/4,
+    every f32 sum of them is exact in any order, so the atomics cannot
+    matter and feat, is_leaf, the splits' bins and directions, the values
+    and the first custom errors must all be equal."""
+    (pairs, word_counts, truth, cfg, _dev), _, X = features_call
+    idx = np.sort(np.random.RandomState(SEED).choice(len(pairs.kind), 2048, replace=False))
+    few = trainer.TrainingPairs(kind=pairs.kind[idx], target=pairs.target[idx],
+                                pair_q=pairs.pair_q[idx], t_pos=pairs.t_pos[idx],
+                                q_titles=pairs.q_titles)
+    X_cpu = trainer.build_feature_matrix(few, word_counts, truth, cfg, "cpu")
+    if not np.array_equal(np.isnan(X_cpu), np.isnan(X[idx])):
+        raise AssertionError("training features: the card's NaNs lie elsewhere than the CPU path's")
+    err = float(np.abs(np.nan_to_num(X_cpu) - np.nan_to_num(X[idx])).max())
+    if err > 1e-5:
+        raise AssertionError(f"training features differ from the CPU path's by {err:.3e} > 1e-5")
+
+    (X_tr, y_tr, X_ev, y_ev, params), _, _ = boosting_call
+    one = gbt.GBTParams(**{**vars(params), "num_boost_round": 1, "early_stopping_rounds": 1})
+    if one.base_score != 0.5 or one.beta * 4 != int(one.beta * 4):
+        raise AssertionError("the first tree's sums are exact only at base score 0.5 and a beta "
+                             "in quarters")
+    m_card = gbt.train_gbt(X_tr, y_tr, X_ev, y_ev, one, verbose_every=0, device="cuda")
+    m_cpu = gbt.train_gbt(X_tr, y_tr, X_ev, y_ev, one, verbose_every=0, device="cpu")
+    splits = m_cpu.feat >= 0
+    equal = (np.array_equal(m_card.feat, m_cpu.feat) and np.array_equal(m_card.is_leaf, m_cpu.is_leaf)
+             and np.array_equal(m_card.split_bin[splits], m_cpu.split_bin[splits])
+             and np.array_equal(m_card.missing_left[splits], m_cpu.missing_left[splits])
+             and np.array_equal(m_card.value, m_cpu.value)
+             and m_card.history["train_error"] == m_cpu.history["train_error"]
+             and m_card.history["eval_error"] == m_cpu.history["eval_error"])
+    print(f"# train against the CPU path: features of {len(idx)} sampled pairs max |diff| "
+          f"{err:.2e} (tolerance 1e-5), NaNs in the same places; first tree on {len(y_tr)} rows "
+          f"({int(splits.sum())} splits) equal: {equal}", flush=True)
+    if not equal:
+        raise AssertionError("the first tree grown on the card differs from the CPU path's")
+    return {"features_max_abs_diff": err, "first_tree_splits": int(splits.sum())}
+
+
+def train_on_card(torch, quick_train_model, cfg, truth, asset, counters):
+    """The training path on the card: ``quick_train_model`` as the bench
+    calls it.  Returns (model, stats); fails unless kernels A (every launch
+    gathering) and B launched and the model holds ``TRAIN_ROUNDS`` trees.
+    Then every call training made of A and of B is held against the plain
+    version, and the features and the first tree against the CPU path."""
+    from doppelspeller_tpu_torch.models import gbt, trainer
+    from doppelspeller_tpu_torch.ops import features
+    from doppelspeller_tpu_torch.ops import features_kernels as fk
+    from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_counts(counters)
+    t = time.time()
+    with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b, \
+            Spy(trainer, "build_feature_matrix") as spy_x, Spy(trainer, "train_gbt") as spy_gbt:
+        model, report = quick_train_model(cfg, truth, TRAIN_ROUNDS, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    same = [bool(all(np.array_equal(getattr(model, k)[i], getattr(asset, k)[i])
+                     for k in ("feat", "split_bin", "missing_left", "is_leaf")))
+            for i in range(min(model.num_trees, asset.num_trees))]
+    hist = report["history"]
+    stats = {"seconds": seconds, "timings": report["timings"], "launches": launches,
+             "pairs_by_kind": report["pairs_by_kind"], "train_rows": report["n_train_rows"],
+             "eval_rows": report["n_eval_rows"], "trees": model.num_trees,
+             "best_ntree_limit": model.best_ntree_limit,
+             "trees_equal_to_committed_model": int(sum(same)),
+             "peak_gb": peak / 1e9, "resident_gb": resident / 1e9}
+    print(f"# train timings (s, synchronized before each clock read): "
+          f"{json.dumps({k: round(v, 3) for k, v in report['timings'].items()})}; "
+          f"{seconds:.3f} s in all", flush=True)
+    print(f"# train pairs by kind {json.dumps(report['pairs_by_kind'])}; train rows "
+          f"{report['n_train_rows']}, eval rows {report['n_eval_rows']}", flush=True)
+    print(f"# train last custom error: train {hist['train_error'][-1]:.1f}, eval "
+          f"{hist['eval_error'][-1]:.1f}; AUC train {hist['final_train_auc']:.6f}, eval "
+          f"{hist['final_eval_auc']:.6f}; {model.num_trees} trees, best_ntree_limit "
+          f"{model.best_ntree_limit}; error matrix {json.dumps(report['error_matrix'])}", flush=True)
+    print(f"# train launches: {json.dumps(launches)}; peak device memory {peak / 1e9:.3f} GB, of "
+          f"which {resident / 1e9:.3f} GB were resident before", flush=True)
+    print(f"# train: {int(sum(same))} of {len(same)} trees equal the committed model's in feat, "
+          f"split_bin, missing_left, is_leaf (the first {same.index(False) if False in same else len(same)} "
+          f"in a row; that model is a CPU run of the JAX package)", flush=True)
+    if launches["A"] == 0 or launches["A gathering"] != launches["A"] or launches["B"] == 0:
+        raise AssertionError(f"training did not launch A (gathering) and B: {launches}")
+    if launches["C"] or launches["D"] or launches["E"]:
+        raise AssertionError(f"training launched a kernel off its path: {launches}")
+    if model.num_trees != TRAIN_ROUNDS:
+        raise AssertionError(f"training gave {model.num_trees} trees, not {TRAIN_ROUNDS}")
+    if (len(spy_a.calls), len(spy_b.calls)) != (launches["A"], launches["B"]):
+        raise AssertionError(f"training's calls of A and B ({len(spy_a.calls)}, {len(spy_b.calls)}) "
+                             f"are not its launches: {launches}")
+    stats["kernels"] = check_train_kernels(torch, jk, fk, spy_a.calls, spy_b.calls)
+    stats["against_cpu"] = check_training_against_cpu(torch, trainer, gbt, spy_x.calls[0],
+                                                      spy_gbt.calls[0])
+    return model, stats
 
 
 def reset_counts(counters):
@@ -664,7 +882,7 @@ def main() -> int:
     from doppelspeller_tpu_torch.models.gbt import GBTModel
     from doppelspeller_tpu_torch.ops.ngram_index import build_packed_matrix, plan_query_blocks
     from doppelspeller_tpu_torch.pipeline import Matcher
-    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world, quick_train_model
     from doppelspeller_tpu_torch.utils.io import TitleSet
 
     model = GBTModel.load(MODEL)
@@ -681,7 +899,8 @@ def main() -> int:
     engine = check_small_world(torch, Matcher, make_synthetic_world, model,
                                cfg0.with_(retrieval_mode="folded", score_dtype="float32"), "f32")
     assert engine == "folded"
-    engine = check_small_world(torch, Matcher, make_synthetic_world, model, cfg0, "default config")
+    engine = check_small_world(torch, Matcher, make_synthetic_world, model, cfg0, "default config",
+                               small_batch=True)
     if engine != "exact":
         raise AssertionError("the default config did not resolve to exact retrieval at 4,096 titles")
     phase("small_worlds", t)
@@ -700,17 +919,38 @@ def main() -> int:
     t = time.time()
     cfg, truth, queries, actual = make_synthetic_world(N_TITLES, N_QUERIES, seed=SEED, config=cfg0)
     phase("folded_world", t)
+
+    # ---- train: the port's own model, before any large Matcher is resident ----
+    t = time.time()
+    own_model, train = train_on_card(torch, quick_train_model, cfg, truth, model, counters)
+    torch.cuda.empty_cache()
+    phase("train", t)
     from doppelspeller_tpu_torch.ops import features
 
-    slab = LargestCall(features, "window_best")
+    slab = Spy(features, "window_best")
     folded, res, la = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
                                     counters, ("A", "B"), "folded", untimed=slab)
     if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E", "A gathering")):
         raise AssertionError(f"the 500k default config left the folded path: {la}")
     t = time.time()
-    kb["slab"] = check_kernel_b_on(torch, fk, slab.args, "on the folded predict's largest slab")
-    del slab
+    largest = max(slab.calls, key=lambda call: call[0][0].numel())[0]
+    kb["slab"] = check_kernel_b_on(torch, fk, largest, "on the folded predict's largest slab")
+    del slab, largest
     phase("kernel_b_slab", t)
+
+    # ---- the folded path once more, with the model trained above ----
+    t = time.time()
+    acc_asset = float((res.match_title_id == actual).mean())
+    folded.set_model(own_model)
+    res_own = folded.predict(queries)
+    torch.cuda.synchronize()
+    acc_own = check_prediction(res_own, actual, len(queries))
+    train["accuracy"], train["accuracy_committed_model"] = acc_own, acc_asset
+    print(f"# train: folded predict with the model trained here: accuracy {acc_own:.4f} (floor "
+          f"{ACCURACY_FLOOR}); the committed model's {acc_asset:.4f} is {acc_asset - acc_own:+.4f} "
+          f"away (not gated: other pair draws move it further); stage_counts "
+          f"{json.dumps(res_own.stage_counts)}", flush=True)
+    phase("train_predict", t)
 
     # ---- exact main path: 150k titles ----
     t = time.time()
@@ -809,10 +1049,14 @@ def main() -> int:
         entry("score_window_select", "A", "score_window.cu", "jaccard_pallas.py:263",
               "folded main path (500k), bf16 weights; exact main path (150k) launched it "
               f"{lx['A']} times, {lx['A gathering']} of them gathering: there its loads carry "
-              "kernel C's function (jaccard_pallas.py:29)", la, ka, hgmma=hgmma["A"],
+              "kernel C's function (jaccard_pallas.py:29); the training path launched it "
+              f"{train['launches']['A']} times, every one gathering", la, ka, hgmma=hgmma["A"],
+              launches_by_path={"folded": la["A"], "exact": lx["A"], "train": train["launches"]["A"]},
               **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
-              f"folded main path (500k); exact main path (150k) launched it {lx['B']} times", la, kb,
+              f"folded main path (500k); exact main path (150k) launched it {lx['B']} times, the "
+              f"training path {train['launches']['B']} times", la, kb,
+              launches_by_path={"folded": la["B"], "exact": lx["B"], "train": train["launches"]["B"]},
               **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
@@ -821,12 +1065,13 @@ def main() -> int:
         entry("gather_rows", "C", "gather_rows.cu", "jaccard_pallas.py:29",
               f"no path of Matcher.predict: gather_rows.cu's own kernel was launched {lx['C']} "
               f"times by the exact main path (150k) and {lo['C']} by the oracle anchor; its "
-              "function runs fused into kernel A's loads (exact main path) and kernel D's "
-              "(oracle anchor), counted under gathering_launches",
+              "function runs fused into kernel A's loads (exact main path, training path) and "
+              "kernel D's (oracle anchor), counted under gathering_launches",
               lx, kc,
               fused_into=["doppelspeller_tpu_torch/csrc/score_window.cu",
                           "doppelspeller_tpu_torch/csrc/score_full.cu"],
               gathering_launches={"exact main path (A)": lx["A gathering"],
+                                  "training path (A)": train["launches"]["A gathering"],
                                   "oracle anchor (D)": lo["D"]}),
         entry("score_full", "D", "score_full.cu", "jaccard_pallas.py:210",
               "oracle anchor (500k, 6,000 queries), f32; every launch gathers: its loads carry "
@@ -838,6 +1083,7 @@ def main() -> int:
     ]
     print(f"# packed index build: {build_150k:.3f} s at {N_TITLES_EXACT} titles, "
           f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)
+    print(f"# train {json.dumps(train)}", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -124,7 +124,8 @@ class Config:
     rerank_chunk_cap: int = 512
     length_buckets: Tuple[int, ...] = (32, 64, 128, 256)
     mesh_axis: str = "titles"
-    # the port runs the device cascade for every batch size
+    # "device": adaptive-depth waves A/B at every size; "host": every
+    # candidate scored; "auto": waves at >= 2,048 rows past the exact stage
     cascade_impl: str = "auto"
     serve_fused: str = "auto"
 
@@ -137,6 +138,10 @@ class Config:
             raise ValueError("only 3-grams are supported (fixed trigram vocab)")
         if self.max_characters > 255:
             raise ValueError("titles are limited to 255 chars (uint8 encoding)")
+
+    @property
+    def model_path(self) -> str:
+        return os.path.join(self.data_path, self.model_file)
 
     def with_(self, **kwargs) -> "Config":
         return replace(self, **kwargs)

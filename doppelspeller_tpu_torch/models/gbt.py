@@ -1,22 +1,282 @@
-"""Gradient-boosted tree inference.
+"""Gradient-boosted trees: training and inference.
 
-Reads the JAX package's ``model.npz`` (``GBTModel.save``) and evaluates the
-forest with the same semantics as its ``predict_forest_margin``: at an
-internal node a NaN feature goes the node's missing direction, otherwise
-left when ``x <= threshold``; a node is a leaf when ``is_leaf`` or
-``feat < 0``.  The TPU version selects features with a one-hot matmul; here
-it is a gather and the walk is ``depth`` gathers over (batch, tree).
-Training is not ported yet.
+The JAX package's ``models/gbt.py`` in PyTorch, on one device: the card
+unless the caller names the CPU.
+
+* Histogram tree growth, level-wise, 256 bins per feature (bin 255 holds
+  the missing values), with XGBoost's missing-value handling: at every
+  split the missing mass is tried on both sides and the better direction
+  is kept.
+* The custom objective and metric: weighted log loss
+  g = p(β + y − βy) − y,  h = p(1 − p)(β + y − βy)  on p = sigmoid(margin),
+  and the custom error FN + β·FP at the probability threshold.
+* Early stopping on the eval custom error with ``best_ntree_limit``.
+
+One arithmetic on both devices, the reference's segment-sum path: the level
+histograms are f32 sums of f32 ``g`` and ``h`` over the key
+(node, feature, bin), formed with ``index_add_``; the last level's leaf
+sums take ``g`` and ``h`` rounded to bf16, as the reference does on every
+path.  The bins' totals and prefix sums are one ``sum`` and one ``cumsum``.
+The order of these f32 adds is the device's own: on the CPU ``index_add_``
+adds in row order, on the card with atomics, so that two trainings there
+may part ways where two splits tie within rounding (rows that share a
+margin and a label share ``g`` and ``h``, so a small node often has
+several splits that are tied in exact arithmetic).  Routing is
+plain indexing.  Train and eval
+rows share one sample axis under {0, 1} masks; every row is routed through
+each new tree and its margin is updated from the leaf it reaches, so no
+round walks the forest.
+
+Inference reads ``model.npz`` of either package with the reference's
+semantics: at an internal node a NaN feature goes the node's missing
+direction, otherwise left when ``x <= threshold``; a node is a leaf when
+``is_leaf`` or ``feat < 0``.  The walk is ``depth`` gathers over
+(batch, tree).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.device import resolve_device
+
+LOGGER = logging.getLogger(__name__)
+
+NB = 256          # bins per feature (255 = missing)
+MISSING_BIN = 255
+N_EDGES = NB - 2  # 254 cut points -> value bins 0..254
+
+# rounds per boosting segment: the error histories and the trees come to the
+# host once per segment, and early stopping is checked there
+SEGMENT_ROUNDS = 50
+
+
+@dataclass
+class GBTParams:
+    depth: int = 5
+    eta: float = 0.1
+    lambda_: float = 1.0
+    min_child_weight: float = 1.0
+    num_boost_round: int = 1000
+    early_stopping_rounds: int = 50
+    beta: float = 5.0                     # false-positive penalty factor
+    threshold: float = 0.9                # custom-error probability threshold
+    base_score: float = 0.5
+    seed: int = 0
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "GBTParams":
+        return cls(
+            depth=cfg.gbt_max_depth,
+            eta=cfg.gbt_eta,
+            lambda_=cfg.gbt_lambda,
+            min_child_weight=cfg.gbt_min_child_weight,
+            num_boost_round=cfg.gbt_num_boost_round,
+            early_stopping_rounds=cfg.gbt_early_stopping_rounds,
+            beta=cfg.false_positive_penalty_factor,
+            threshold=cfg.prediction_probability_threshold,
+            seed=cfg.seed,
+        )
+
+
+# ----------------------------------------------------------------- objective
+
+def weighted_log_loss_grad_hess(pred: torch.Tensor, y: torch.Tensor,
+                                beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradient and hessian of the β-weighted log loss at probability ``pred``."""
+    w = beta + y - beta * y
+    g = pred * w - y
+    h = pred * (1.0 - pred) * w
+    return g, h
+
+
+def margin_grad_hess(margin: torch.Tensor, y: torch.Tensor,
+                     beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """grad/hess w.r.t. the raw margin: p = sigmoid(margin)."""
+    return weighted_log_loss_grad_hess(torch.sigmoid(margin), y, beta)
+
+
+def custom_error(pred: np.ndarray, y: np.ndarray, beta: float, threshold: float) -> float:
+    """FN + beta*FP at the probability threshold."""
+    pos = pred > threshold
+    fn = float(y[~pos].sum())
+    fp = float((y[pos] == 0).sum()) * beta
+    return fn + fp
+
+
+def auc_score(pred: np.ndarray, y: np.ndarray) -> float:
+    order = np.argsort(pred, kind="stable")
+    ranks = np.empty(len(pred), dtype=np.float64)
+    ranks[order] = np.arange(1, len(pred) + 1)
+    # average ranks over ties
+    sorted_pred = pred[order]
+    _uniq, inv, cnt = np.unique(sorted_pred, return_inverse=True, return_counts=True)
+    csum = np.cumsum(cnt)
+    avg_rank = (csum - (cnt - 1) / 2.0).astype(np.float64)
+    ranks[order] = avg_rank[inv]
+    n_pos = float(y.sum())
+    n_neg = float(len(y) - n_pos)
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return (ranks[y == 1].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg)
+
+
+# ------------------------------------------------------------------- binning
+
+def compute_bin_edges(X: np.ndarray) -> np.ndarray:
+    """float32[F, N_EDGES] quantile cut points per feature (NaN-aware)."""
+    F = X.shape[1]
+    edges = np.zeros((F, N_EDGES), dtype=np.float32)
+    qs = np.linspace(0.0, 1.0, NB)[1:-1]  # 254 interior quantiles
+    for f in range(F):
+        col = X[:, f]
+        col = col[~np.isnan(col)]
+        if len(col) == 0:
+            edges[f] = np.arange(N_EDGES, dtype=np.float32)
+            continue
+        edges[f] = np.quantile(col, qs).astype(np.float32)
+    return edges
+
+
+def bin_features(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """uint8[N, F] bin codes; NaN → MISSING_BIN.  bin = Σ_j (x > e_j)."""
+    N, F = X.shape
+    out = np.zeros((N, F), dtype=np.uint8)
+    for f in range(F):
+        col = X[:, f]
+        nan = np.isnan(col)
+        b = np.searchsorted(edges[f], col, side="left")
+        b = np.clip(b, 0, N_EDGES)  # values above the last edge → bin 254
+        b[nan] = MISSING_BIN
+        out[:, f] = b.astype(np.uint8)
+    return out
+
+
+# ------------------------------------------------------------- tree growth
+
+def _segment_sum(key: torch.Tensor, values: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """float32[n_segments] sums of ``values`` (M,) by ``key`` (M,).  On the
+    CPU ``index_add_`` is a serial loop in row order; on the card it adds
+    with atomics, so the order of a segment's f32 adds changes from run to
+    run."""
+    out = torch.zeros(n_segments, dtype=torch.float32, device=values.device)
+    return out.index_add_(0, key, values)
+
+
+def build_tree(
+    bins: torch.Tensor,   # integer [N, F] bin codes
+    g: torch.Tensor,      # float32[N]
+    h: torch.Tensor,      # float32[N]
+    *,
+    depth: int,
+    lambda_: float,
+    min_child_weight: float,
+):
+    """Grow one depth-``depth`` tree level-wise.  Returns heap arrays of
+    size 2^(depth+1) − 1 on the inputs' device, (feat int32, split_bin
+    int32, missing_left bool, value float32, is_leaf bool), and ``contrib``
+    float32[N], the value of the leaf each sample reaches (unscaled by eta).
+
+    Per level the (node, feature, bin) sums of ``g`` and ``h`` are one
+    segment sum over N·F keys; the split search is a cumulative sum
+    (``torch.cumsum``) over the 255 value bins for all (node, feature) pairs at once, with the
+    missing mass tried left and right; the best split is the first maximum
+    over (feature, edge, missing-left before missing-right).  Rows with
+    g = h = 0 (eval rows) are routed and add nothing to any sum."""
+    N, F = bins.shape
+    dev = bins.device
+    n_heap = 2 ** (depth + 1) - 1
+    bins_i = bins.to(torch.int64)
+    # key of a row's bin within one node's histogram: f·NB + bin
+    fb = bins_i + torch.arange(F, device=dev, dtype=torch.int64)[None, :] * NB
+    rows = torch.arange(N, device=dev)
+
+    feat = torch.full((n_heap,), -1, dtype=torch.int32, device=dev)
+    split_bin = torch.zeros((n_heap,), dtype=torch.int32, device=dev)
+    missing_left = torch.zeros((n_heap,), dtype=torch.bool, device=dev)
+    value = torch.zeros((n_heap,), dtype=torch.float32, device=dev)
+    is_leaf = torch.zeros((n_heap,), dtype=torch.bool, device=dev)
+
+    node = torch.zeros((N,), dtype=torch.int64, device=dev)   # heap position per sample
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)    # sample sits at a final leaf
+    contrib = torch.zeros((N,), dtype=torch.float32, device=dev)
+    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+
+    for level in range(depth):
+        n_nodes = 2 ** level
+        offset = n_nodes - 1
+        # done rows hold no live local id: their keys go to the spare slot S
+        local = torch.where(done, 0, node - offset)
+        S = n_nodes * F * NB
+        key = torch.where(done[:, None], S, local[:, None] * (F * NB) + fb).reshape(-1)
+        G = _segment_sum(key, g[:, None].expand(N, F).reshape(-1), S + 1)[:S].reshape(n_nodes, F, NB)
+        H = _segment_sum(key, h[:, None].expand(N, F).reshape(-1), S + 1)[:S].reshape(n_nodes, F, NB)
+
+        Gm, Hm = G[..., MISSING_BIN], H[..., MISSING_BIN]
+        Gv, Hv = G[..., :MISSING_BIN], H[..., :MISSING_BIN]
+        Gtot = Gv.sum(dim=-1) + Gm                # (nodes, F), the same for all f
+        Htot = Hv.sum(dim=-1) + Hm
+        GL = torch.cumsum(Gv, dim=-1)[..., :N_EDGES]      # split at k: bins ≤ k left
+        HL = torch.cumsum(Hv, dim=-1)[..., :N_EDGES]
+        parent = (Gtot * Gtot / (Htot + lambda_))[..., None]
+
+        def gain_of(GLx, HLx):
+            GRx = Gtot[..., None] - GLx
+            HRx = Htot[..., None] - HLx
+            ok = (HLx >= min_child_weight) & (HRx >= min_child_weight)
+            gn = GLx * GLx / (HLx + lambda_) + GRx * GRx / (HRx + lambda_) - parent
+            return torch.where(ok, gn, neg_inf)
+
+        gain_ml = gain_of(GL + Gm[..., None], HL + Hm[..., None])  # missing left
+        gain_mr = gain_of(GL, HL)                                   # missing right
+        gflat = torch.stack([gain_ml, gain_mr], dim=-1).reshape(n_nodes, -1)
+        best = torch.argmax(gflat, dim=1)                           # first max
+        best_gain = torch.gather(gflat, 1, best[:, None])[:, 0]
+        best_f = best // (N_EDGES * 2)
+        best_k = (best // 2) % N_EDGES
+        best_ml = (best % 2) == 0
+
+        node_value = -Gtot[:, 0] / (Htot[:, 0] + lambda_)
+        # leaf if no valid positive-gain split or the node is empty
+        leaf_now = (best_gain <= 1e-10) | (Htot[:, 0] <= 0.0)
+
+        sl = slice(offset, offset + n_nodes)
+        feat[sl] = torch.where(leaf_now, -1, best_f).to(torch.int32)
+        split_bin[sl] = best_k.to(torch.int32)
+        missing_left[sl] = best_ml
+        value[sl] = node_value
+        is_leaf[sl] = leaf_now
+
+        # route the samples
+        b = bins_i[rows, best_f[local]]
+        go_left = torch.where(b == MISSING_BIN, best_ml[local], b <= best_k[local])
+        newly_done = ~done & leaf_now[local]
+        contrib = contrib + torch.where(newly_done, node_value[local], 0.0)
+        done = done | newly_done
+        # a row that became a leaf here stays at offset + local, its own node
+        node = torch.where(done, node, 2 * node + 1 + (~go_left).to(torch.int64))
+
+    # final level: everything still active becomes a leaf; its sums take g
+    # and h rounded to bf16, as the reference's do on every path
+    n_nodes = 2 ** depth
+    offset = n_nodes - 1
+    local = torch.where(done, n_nodes, node - offset)
+    Gn = _segment_sum(local, g.to(torch.bfloat16).to(torch.float32), n_nodes + 1)[:n_nodes]
+    Hn = _segment_sum(local, h.to(torch.bfloat16).to(torch.float32), n_nodes + 1)[:n_nodes]
+    leaf_val = -Gn / (Hn + lambda_)
+    contrib = contrib + torch.where(done, 0.0, leaf_val[local.clamp(max=n_nodes - 1)])
+    value[offset:] = leaf_val
+    is_leaf[offset:] = True
+    return feat, split_bin, missing_left, value, is_leaf, contrib
+
+
+# -------------------------------------------------------------------- model
 
 @dataclass
 class GBTModel:
@@ -30,6 +290,7 @@ class GBTModel:
     base_score: float
     best_ntree_limit: int
     depth: int
+    history: dict = field(default_factory=dict)
 
     @property
     def num_trees(self) -> int:
@@ -39,7 +300,7 @@ class GBTModel:
     def from_arrays(cls, arrays: Dict[str, object]) -> "GBTModel":
         """Build from a mapping of the model's fields (numpy arrays and
         scalars), e.g. a loaded ``model.npz`` or a JAX ``GBTModel``'s
-        ``__dict__``."""
+        ``__dict__``; ``history`` may be absent."""
         return cls(
             feat=np.asarray(arrays["feat"], dtype=np.int32),
             threshold=np.asarray(arrays["threshold"], dtype=np.float32),
@@ -51,12 +312,58 @@ class GBTModel:
             base_score=float(arrays["base_score"]),
             best_ntree_limit=int(arrays["best_ntree_limit"]),
             depth=int(arrays["depth"]),
+            history=dict(arrays.get("history") or {}),
         )
 
     @classmethod
     def load(cls, path: str) -> "GBTModel":
         with np.load(path) as z:
             return cls.from_arrays({k: z[k] for k in z.files})
+
+    def save(self, path: str) -> None:
+        """The JAX package's ``model.npz`` keys, so each package reads the
+        other's file."""
+        np.savez_compressed(
+            path,
+            feat=self.feat, threshold=self.threshold, split_bin=self.split_bin,
+            missing_left=self.missing_left, value=self.value, is_leaf=self.is_leaf,
+            edges=self.edges,
+            base_score=np.float32(self.base_score),
+            best_ntree_limit=np.int64(self.best_ntree_limit),
+            depth=np.int64(self.depth),
+        )
+
+    def predict(self, X: np.ndarray, ntree_limit: Optional[int] = None,
+                batch: int = 262144, device="cuda") -> np.ndarray:
+        """Probabilities float32[len(X)] = sigmoid(margin) over the first
+        ``ntree_limit`` (default ``best_ntree_limit``) trees."""
+        dev = resolve_device(device)
+        nt = ntree_limit or self.best_ntree_limit or self.num_trees
+        nt = min(nt, self.num_trees)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a[:nt])).to(dev)
+
+        feat, thr, ml, val, leaf = (put(self.feat).to(torch.int64), put(self.threshold),
+                                    put(self.missing_left), put(self.value), put(self.is_leaf))
+        # the walk holds (rows, trees, internal nodes) temporaries
+        step = max(1, min(batch, (1 << 26) // max(nt * (2 ** self.depth - 1), 1)))
+        out = np.zeros(len(X), dtype=np.float32)
+        for s in range(0, len(X), step):
+            xb = torch.from_numpy(np.ascontiguousarray(X[s : s + step], dtype=np.float32)).to(dev)
+            m = predict_forest_margin(xb, feat, thr, ml, val, leaf, self.depth, self.base_margin)
+            out[s : s + len(xb)] = torch.sigmoid(m).cpu().numpy()
+        return out
+
+    def feature_importance(self) -> np.ndarray:
+        """Split counts per feature, normalized."""
+        nt = self.best_ntree_limit or self.num_trees
+        used = self.feat[:nt]
+        counts = np.zeros(self.edges.shape[0], dtype=np.float64)
+        valid = (used >= 0) & ~self.is_leaf[:nt]
+        np.add.at(counts, used[valid], 1.0)
+        total = counts.sum()
+        return counts / total if total > 0 else counts
 
     def forest_arrays(self, device, pad_to: int = 64):
         """(feat, threshold, missing_left, value, is_leaf) tensors of the
@@ -80,7 +387,11 @@ class GBTModel:
 
     @property
     def base_margin(self) -> float:
-        return float(np.log(self.base_score / (1 - self.base_score)))
+        return _logit(self.base_score)
+
+
+def _logit(p: float) -> float:
+    return float(np.log(p / (1.0 - p)))
 
 
 def predict_forest_margin(X: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
@@ -108,3 +419,145 @@ def predict_forest_margin(X: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor
     margin = torch.gather(value[None].expand(B, T, n_heap), 2, node[..., None])[..., 0]
     base = torch.tensor(base_margin, dtype=torch.float32, device=X.device)
     return base + margin.sum(dim=1)
+
+
+# ------------------------------------------------------------------ training
+
+def boost_segment(
+    bins: torch.Tensor, y: torch.Tensor, w_hist: torch.Tensor,
+    w_tr: torch.Tensor, w_ev: torch.Tensor, margins: torch.Tensor,
+    *, depth: int, n_rounds: int, eta: float, beta: float, threshold: float,
+    lambda_: float, min_child_weight: float,
+):
+    """``n_rounds`` boosting rounds with no host round trip between them.
+
+    Train and eval rows share the sample axis; {0, 1} masks pick each
+    population: ``w_hist`` weights the histograms (0 for eval rows),
+    ``w_tr`` and ``w_ev`` the two custom-error sums.  Returns the stacked
+    tree arrays (feat, split_bin, missing_left, value·eta, is_leaf), the
+    per-round train and eval custom errors, and the final margins."""
+    dev = bins.device
+    n_heap = 2 ** (depth + 1) - 1
+    trees = (
+        torch.empty((n_rounds, n_heap), dtype=torch.int32, device=dev),
+        torch.empty((n_rounds, n_heap), dtype=torch.int32, device=dev),
+        torch.empty((n_rounds, n_heap), dtype=torch.bool, device=dev),
+        torch.empty((n_rounds, n_heap), dtype=torch.float32, device=dev),
+        torch.empty((n_rounds, n_heap), dtype=torch.bool, device=dev),
+    )
+    e_tr = torch.empty(n_rounds, dtype=torch.float32, device=dev)
+    e_ev = torch.empty(n_rounds, dtype=torch.float32, device=dev)
+    for r in range(n_rounds):
+        g, h = margin_grad_hess(margins, y, beta)
+        *tree, contrib = build_tree(bins, g * w_hist, h * w_hist, depth=depth,
+                                    lambda_=lambda_, min_child_weight=min_child_weight)
+        tree[3] = tree[3] * eta
+        for dst, src in zip(trees, tree):
+            dst[r] = src
+        margins = margins + eta * contrib
+        pos = torch.sigmoid(margins) > threshold
+        miss = y * (~pos)
+        false_pos = (1.0 - y) * pos
+        e_tr[r] = torch.sum(w_tr * miss) + torch.sum(w_tr * false_pos) * beta
+        e_ev[r] = torch.sum(w_ev * miss) + torch.sum(w_ev * false_pos) * beta
+    return trees, e_tr, e_ev, margins
+
+
+def train_gbt(
+    X: np.ndarray, y: np.ndarray,
+    X_eval: np.ndarray, y_eval: np.ndarray,
+    params: Optional[GBTParams] = None,
+    verbose_every: int = 25,
+    device="cuda",
+) -> GBTModel:
+    """Boosting with the custom objective, on ``device``.
+
+    Rounds run in segments of ``min(50, num_boost_round)``.  Early stopping
+    has XGBoost's semantics at segment granularity: training stops after
+    the first segment whose best round is at least ``early_stopping_rounds``
+    old, trees past the stop point are dropped, and ``best_ntree_limit`` is
+    the best round + 1."""
+    p = params or GBTParams()
+    dev = resolve_device(device)
+    N = X.shape[0]
+    edges = compute_bin_edges(X)
+    y_eval_np = y_eval.astype(np.float32)
+    Ne = len(X_eval)
+    # one sample axis: train rows, then eval rows
+    bins_all = np.concatenate([bin_features(X, edges), bin_features(X_eval, edges)])
+    y_all = np.concatenate([y.astype(np.float32), y_eval_np])
+    w_hist = np.concatenate([np.ones(N, np.float32), np.zeros(Ne, np.float32)])
+
+    bins_d = torch.from_numpy(bins_all).to(dev)
+    y_d = torch.from_numpy(y_all).to(dev)
+    w_hist_d = torch.from_numpy(w_hist).to(dev)
+    w_ev_d = 1.0 - w_hist_d
+    m = torch.full((len(bins_all),), _logit(p.base_score), dtype=torch.float32, device=dev)
+
+    segment = min(SEGMENT_ROUNDS, p.num_boost_round)
+    chunks = []
+    err_train_l: List[np.ndarray] = []
+    err_eval_l: List[np.ndarray] = []
+    best_round = 0
+    best_err = np.inf
+    rounds_done = 0
+    while rounds_done < p.num_boost_round:
+        n_rounds = min(segment, p.num_boost_round - rounds_done)
+        trees, e_tr_d, e_ev_d, m = boost_segment(
+            bins_d, y_d, w_hist_d, w_hist_d, w_ev_d, m,
+            depth=p.depth, n_rounds=n_rounds, eta=p.eta, beta=p.beta,
+            threshold=p.threshold, lambda_=p.lambda_,
+            min_child_weight=p.min_child_weight,
+        )
+        chunks.append(tuple(t.cpu().numpy() for t in trees))
+        e_tr, e_ev = e_tr_d.cpu().numpy(), e_ev_d.cpu().numpy()
+        err_train_l.append(e_tr)
+        err_eval_l.append(e_ev)
+        for i, err in enumerate(e_ev):
+            if err < best_err:
+                best_err = float(err)
+                best_round = rounds_done + i
+        rounds_done += n_rounds
+        if verbose_every:
+            LOGGER.info("[%d] train-error:%.0f eval-error:%.0f (best %d: %.0f)",
+                        rounds_done - 1, e_tr[-1], e_ev[-1], best_round, best_err)
+        if rounds_done - 1 - best_round >= p.early_stopping_rounds:
+            LOGGER.info("early stopping at round %d (best %d, eval-error %.0f)",
+                        rounds_done - 1, best_round, best_err)
+            break
+
+    err_train = np.concatenate(err_train_l)
+    err_eval = np.concatenate(err_eval_l)
+    # truncate with XGBoost stop semantics
+    stop = min(best_round + p.early_stopping_rounds, rounds_done - 1)
+    T = stop + 1
+    feat_a, split_a, ml_a, val_a, leaf_a = (
+        np.concatenate([c[j] for c in chunks])[:T] for j in range(5)
+    )
+
+    m_host = m.cpu().numpy()
+    pt = 1.0 / (1.0 + np.exp(-m_host[:N]))
+    pe = 1.0 / (1.0 + np.exp(-m_host[N : N + Ne]))
+    history = {
+        "train_error": err_train[:T].tolist(),
+        "eval_error": err_eval[:T].tolist(),
+        "final_train_auc": auc_score(pt, y.astype(np.float32)),
+        "final_eval_auc": auc_score(pe, y_eval_np),
+    }
+    if verbose_every:
+        LOGGER.info(
+            "final(%d rounds run) train-auc:%.6f eval-auc:%.6f | best round %d eval-error %.0f",
+            rounds_done, history["final_train_auc"], history["final_eval_auc"],
+            best_round, best_err,
+        )
+
+    # raw-value thresholds: thr = edges[f, k]
+    thr_a = edges[np.maximum(feat_a, 0), np.clip(split_a, 0, N_EDGES - 1)].astype(np.float32)
+    return GBTModel(
+        feat=feat_a, threshold=thr_a, split_bin=split_a, missing_left=ml_a,
+        value=val_a, is_leaf=leaf_a, edges=edges,
+        base_score=p.base_score,
+        best_ntree_limit=best_round + 1,
+        depth=p.depth,
+        history=history,
+    )

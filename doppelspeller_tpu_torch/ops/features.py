@@ -17,16 +17,24 @@ The sliding-window ratios go through kernel B (``ops/features_kernels.py``)
 for words of at most 32 characters and through the plain window DP
 (``window_best_dp``) for longer ones, as in the reference.  The
 reconstruction's one-hot matmuls of the TPU version are gathers here.
+
+Two host entries build feature matrices over many pairs:
+``features_for_pairs`` (the trainer's: the query and truth tables go to the
+device once, then each chunk sends only its index pairs) and
+``construct_features`` (pairs given as encodings).  Both bucket the pairs by
+(title length, longest word) so a chunk's tensors are as narrow as its pairs
+allow; the result does not depend on the chunk size.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from doppelspeller_tpu_torch.config import SPACE_CODE
+from doppelspeller_tpu_torch.config import Config, SPACE_CODE
+from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.features_kernels import WL_MAX, window_best
 from doppelspeller_tpu_torch.ops.levenshtein import floor_ratio, lcs
 
@@ -184,3 +192,162 @@ def features_kernel(
         n_words_t.to(torch.float32), lev, recon_ratio,
     ], dim=1)
     return torch.cat([basic, best_ratios_f, word_len_f, idf, ranks], dim=1)
+
+
+# ------------------------------------------------- resident pair features
+
+def pair_features(
+    q_enc, q_len, q_wo, q_wo_len,                                 # (U, L) resident query side
+    t_enc, t_len, t_wchars, t_start, t_wlen, t_nwords, t_counts,  # resident truth side
+    pair_q: torch.Tensor, pair_t: torch.Tensor,                   # int64[B] rows of each side
+    n_truth: float, *, tl: int, wl: int,
+) -> torch.Tensor:
+    """float32[B, 66] features of B (query row, truth row) index pairs, both
+    sides gathered on the device from the resident tables and cut to the
+    ``tl`` × ``wl`` tile."""
+    from doppelspeller_tpu_torch.ops.rerank import word_chars
+
+    chars = word_chars(t_wchars, t_start, t_wlen, t_enc, pair_t, wl)
+    return features_kernel(
+        q_enc[pair_q, :tl], q_len[pair_q],
+        t_enc[pair_t, :tl], torch.clamp(t_len[pair_t], min=1),
+        chars.contiguous(), t_wlen[pair_t], torch.clamp(t_nwords[pair_t], min=1),
+        q_wo[pair_q, :tl], torch.clamp(q_wo_len[pair_q], min=1),
+        t_counts[pair_t], n_truth,
+    )
+
+
+def _pair_chunk(tl: int, wl: int) -> int:
+    """Pairs per device call: bounded by the widest temporaries, the plain
+    window DP's (pairs, 15, tl, wl + 1) int64 state for words past kernel
+    B's 32 characters, else the (pairs, tl)-shaped LCS and gather tensors."""
+    if wl > WL_MAX:
+        return int(np.clip((1 << 28) // (NUM_WORD_SLOTS * tl * (wl + 1) * 8), 64, 4096))
+    return int(np.clip((1 << 22) // tl, 1024, 1 << 16))
+
+
+def features_for_pairs(
+    pair_q: np.ndarray,        # int[M] indices into the unique query rows
+    pair_t: np.ndarray,        # int[M] truth row positions
+    q_enc: np.ndarray,         # uint8[U, L] unique query encodings
+    q_len: np.ndarray,         # int32[U]
+    truth_enc: np.ndarray,     # uint8[T, L]
+    truth_len: np.ndarray,     # int32[T]
+    counts_matrix: np.ndarray, # uint32[T, W] truth-DB word document counts
+    config: Config,
+    device="cuda",
+    chunk: Optional[int] = None,
+) -> np.ndarray:
+    """float32[M, 66] features of (query row, truth row) pairs.  The query
+    and truth tables go to ``device`` once; per chunk only the index pairs
+    go up and one (chunk, 66) matrix comes back.  ``chunk`` overrides the
+    pairs per device call."""
+    cfg = config
+    dev = resolve_device(device)
+    n = len(pair_q)
+    out = np.zeros((n, FEATURES_COUNT), dtype=np.float32)
+    if n == 0:
+        return out
+    pair_q = np.asarray(pair_q, dtype=np.int64)
+    pair_t = np.asarray(pair_t, dtype=np.int64)
+
+    q_wo, q_wo_len = remove_spaces_host(q_enc, q_len)
+    start, wlen, nwords = split_words_host(truth_enc, truth_len)
+    wchars = gather_word_chars(truth_enc, start, wlen, WL_MAX)
+    wlen_max = wlen.max(axis=1)
+
+    def put(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=dev, dtype=dtype)
+
+    tables = (
+        put(q_enc), put(q_len, torch.int32), put(q_wo), put(q_wo_len, torch.int32),
+        put(truth_enc), put(truth_len, torch.int32), put(wchars), put(start, torch.int64),
+        put(wlen, torch.int32), put(nwords, torch.int32), put(counts_matrix.astype(np.float32)),
+    )
+    n_truth = float(truth_enc.shape[0])
+
+    L = q_enc.shape[1]
+    pair_len = np.maximum(q_len[pair_q], truth_len[pair_t])
+    buckets = [b for b in cfg.length_buckets if b < L] + [L]
+    w_buckets = [b for b in (8, 16, 32, 64) if b < L] + [L]
+    tb_idx = np.searchsorted(np.asarray(buckets), np.minimum(pair_len, L))
+    wb_idx = np.searchsorted(np.asarray(w_buckets), np.maximum(wlen_max[pair_t], 1))
+    # a word is a substring of its title, so its bucket is no wider than the
+    # title's on these grids; clamp anyway, the loop visits only WL <= TL
+    ti_min_for_w = np.searchsorted(np.asarray(buckets), np.asarray(w_buckets))
+    tb_idx = np.maximum(tb_idx, ti_min_for_w[wb_idx])
+
+    n_dispatched = 0
+    pending = []
+    for ti, TL in enumerate(buckets):
+        for wi, WL in enumerate(w_buckets):
+            if WL > TL:
+                continue
+            sel = np.flatnonzero((tb_idx == ti) & (wb_idx == wi))
+            step = chunk or _pair_chunk(TL, WL)
+            for s in range(0, len(sel), step):
+                idx = sel[s : s + step]
+                feats = pair_features(*tables, put(pair_q[idx]), put(pair_t[idx]), n_truth,
+                                      tl=TL, wl=WL)
+                pending.append((idx, feats))
+                n_dispatched += len(idx)
+    assert n_dispatched == n, f"pair dispatch hole: {n_dispatched} != {n}"
+    for idx, feats in pending:
+        out[idx] = feats.cpu().numpy()
+    return out
+
+
+def construct_features(
+    q_enc: np.ndarray,
+    q_len: np.ndarray,
+    t_enc: np.ndarray,
+    t_len: np.ndarray,
+    word_counts: np.ndarray,
+    n_truth: int,
+    config: Config,
+    device="cuda",
+    chunk: Optional[int] = None,
+) -> np.ndarray:
+    """float32[N, 66] features of N (query, candidate) pairs given as
+    encodings.  ``word_counts`` is uint32[N, 15]: truth-DB document counts of
+    the candidate's first 15 words."""
+    cfg = config
+    dev = resolve_device(device)
+    n = len(q_len)
+    q_len = np.asarray(q_len, dtype=np.int32)
+    t_len = np.asarray(t_len, dtype=np.int32)
+    out = np.zeros((n, FEATURES_COUNT), dtype=np.float32)
+
+    start, wlen, n_words_t = split_words_host(t_enc, t_len)
+    q_wo, q_wo_len = remove_spaces_host(q_enc, q_len)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    L = q_enc.shape[1]
+    buckets = [b for b in cfg.length_buckets if b < L] + [L]
+    w_buckets = [8, 16, 32, 64, L]
+    tb_idx = np.searchsorted(np.asarray(buckets), np.maximum(q_len, t_len))
+    wb_idx = np.searchsorted(np.asarray(w_buckets), np.maximum(wlen.max(axis=1), 1))
+
+    pending = []
+    for ti, TL in enumerate(buckets):
+        for wi, WL in enumerate(w_buckets):
+            if WL > TL:
+                continue
+            sel = np.flatnonzero((tb_idx == ti) & (wb_idx == wi))
+            step = chunk or _pair_chunk(TL, WL)
+            for s in range(0, len(sel), step):
+                idx = sel[s : s + step]
+                feats = features_kernel(
+                    put(q_enc[idx, :TL]), put(q_len[idx]),
+                    put(t_enc[idx, :TL]), put(np.maximum(t_len[idx], 1)),
+                    put(gather_word_chars(t_enc[idx], start[idx], wlen[idx], WL)),
+                    put(wlen[idx]), put(np.maximum(n_words_t[idx], 1)),
+                    put(q_wo[idx, :TL]), put(np.maximum(q_wo_len[idx], 1)),
+                    put(word_counts[idx].astype(np.float32)), float(n_truth),
+                )
+                pending.append((idx, feats))
+    for idx, feats in pending:
+        out[idx] = feats.cpu().numpy()
+    return out

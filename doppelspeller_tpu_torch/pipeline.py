@@ -15,7 +15,12 @@ CPU.  Stages:
    probability threshold.  With adaptive depth, wave A scores the first
    ``model_depth_initial`` candidates of every row; rows whose wave-A max
    lies in [widen, trust) (or is tied at or above trust) score the rest in
-   wave B, and the two waves merge exactly.
+   wave B, and the two waves merge exactly.  As in the JAX package the
+   waves run only for ``cascade_impl="device"`` or, under ``"auto"``, at
+   2,048 or more rows past the exact stage; a smaller batch, ``"host"`` and
+   a single-title request score every candidate in one wave.  The same
+   device engines serve both: a pair's ratio and probability do not depend
+   on how it is batched.
 
 The TPU package's static slab and bucket shapes exist for XLA recompiles;
 here the rows are only grouped by the (TL, WL) bucket their candidates need
@@ -63,6 +68,21 @@ class PredictionResult:
     stage_counts: Dict[str, int] = field(default_factory=dict)
     stage_seconds: Dict[str, float] = field(default_factory=dict)
 
+    def single_result(self) -> dict:
+        """The single-title dict of the reference (first row of the result)."""
+        return {
+            "test_index": int(self.test_index[0]),
+            "transformed_title": self.transformed[0],
+            "match_transformed_title": self.match_transformed[0],
+            "match_title_id": int(self.match_title_id[0]),
+            "prediction": float(self.prediction[0]),
+        }
+
+
+# under cascade_impl="auto" the adaptive-depth waves start at this many rows
+# past the exact stage (the JAX package's threshold)
+DEVICE_CASCADE_MIN_ROWS = 2048
+
 
 class Matcher:
     """End-to-end matcher over a truth database, on one device."""
@@ -71,7 +91,6 @@ class Matcher:
         self.cfg = config
         self.device = resolve_device(device)
         self.truth = truth
-        self.model = model
         self.index = build_truth_index(truth, config)
         self.scorer = JaccardScorer(self.index, config, self.device, truth)
         # exact-match lookup: duplicate transformed titles → last id wins
@@ -85,9 +104,15 @@ class Matcher:
         ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
         self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                  config, self.device)
-        counts = WordCounts(truth).matrix(truth.transformed)
-        self.rerank = RerankEngine(truth.encoded, truth.lengths, self.truth_words, counts,
-                                   model, len(truth), config, self.device)
+        self._word_counts = WordCounts(truth).matrix(truth.transformed)
+        self.set_model(model)
+
+    def set_model(self, model: GBTModel) -> None:
+        """Take another model for stage 3 (say, one just trained) over the
+        same truth database: only the model stage's engine is rebuilt."""
+        self.model = model
+        self.rerank = RerankEngine(self.truth.encoded, self.truth.lengths, self.truth_words,
+                                   self._word_counts, model, len(self.truth), self.cfg, self.device)
 
     # ------------------------------------------------------------- stages
 
@@ -110,8 +135,12 @@ class Matcher:
         res.match_transformed[qi] = self.truth.transformed[pos]
 
     def _cascade_device(self, queries: TitleSet, rem: np.ndarray,
-                        res: PredictionResult) -> None:
-        """Retrieval, fuzzy and model stages for the rows ``rem``."""
+                        res: PredictionResult, waves: bool = True,
+                        single: bool = False) -> None:
+        """Retrieval, fuzzy and model stages for the rows ``rem``.  Without
+        ``waves`` stage 3 scores every candidate in one pass; ``single``
+        (one row) records the first max of all its probabilities whatever
+        its value and count."""
         cfg = self.cfg
         dev = self.device
         k = cfg.top_n_predicting
@@ -228,10 +257,13 @@ class Matcher:
             return hit
 
         k1 = int(cfg.model_depth_initial)
-        adaptive = 0 < k1 < k
+        adaptive = waves and 0 < k1 < k
         all_rows = np.arange(n, dtype=np.int64)
         cnt_a, pos_a, mx_a = run_wave(all_rows, k1 if adaptive else 0)
-        if not adaptive:
+        if single:
+            self._record(res, rem[todo[0]], int(pos_a[0]), float(mx_a[0]), STAGE_MODEL)
+            hits = 1
+        elif not adaptive:
             hits = apply(all_rows, cnt_a, pos_a, mx_a)
         else:
             widen_thr = float(cfg.model_widen_threshold)
@@ -256,8 +288,10 @@ class Matcher:
 
     # -------------------------------------------------------------- entry
 
-    def predict(self, queries: TitleSet) -> PredictionResult:
+    def predict(self, queries: TitleSet, single: bool = False) -> PredictionResult:
         cfg = self.cfg
+        if single and len(queries) != 1:
+            raise ValueError("single prediction requires exactly one query")
         if queries.encoded.shape[1] != cfg.max_characters:
             raise ValueError(
                 f"queries were encoded at width {queries.encoded.shape[1]} but this "
@@ -279,7 +313,11 @@ class Matcher:
         res.stage_counts.update(fuzzy=0, model=0)
         rem = np.flatnonzero(res.stage == STAGE_NONE)
         if len(rem):
-            self._cascade_device(queries, rem, res)
+            impl = cfg.cascade_impl
+            waves = not single and (
+                impl == "device"
+                or (impl == "auto" and len(rem) >= DEVICE_CASCADE_MIN_ROWS))
+            self._cascade_device(queries, rem, res, waves=waves, single=single)
         LOGGER.info("Matched %d/%d titles (exact %d, fuzzy %d, model %d)",
                     int((res.stage != STAGE_NONE).sum()), n, res.stage_counts["exact"],
                     res.stage_counts["fuzzy"], res.stage_counts["model"])

@@ -6,6 +6,10 @@ stems, the titles and the queries in the same order, so a seed gives the
 same titles, queries and ``q_actual`` in both packages.  Queries are ~10 %
 exact copies, ~60 % misspelled truth titles and ~30 % titles not in truth
 (``q_actual`` −1).
+
+``quick_train_model`` is the bench's small-but-real training run on such a
+world, on the rows of ``quick_train_rows``: the bench's own draws, so both
+packages train on the same rows.
 """
 
 from __future__ import annotations
@@ -71,3 +75,44 @@ def make_synthetic_world(
         q_titles, ids=np.arange(n_queries, dtype=np.int64), config=cfg
     )
     return cfg, truth, queries, np.asarray(q_actual, dtype=np.int64)
+
+
+def quick_train_rows(cfg: Config, truth: TitleSet) -> Tuple[TitleSet, TitleSet]:
+    """(truth subset, train rows) of the bench's quick training run, the JAX
+    package's ``bench.quick_train_model`` draw for draw: the first 50,000
+    titles of a larger truth DB (the model does not depend on the index
+    size) and min(2000, titles) train rows from ``random.Random(13)``, half
+    of them misspelled truth titles and half two random 6-letter words
+    labelled not-found."""
+    rng = random.Random(13)
+    if len(truth) > 50_000:
+        truth = TitleSet.from_titles(truth.titles[:50_000], ids=truth.ids[:50_000], config=cfg)
+    n_train = min(2000, len(truth))
+    rows = rng.sample(range(len(truth)), n_train)
+    t_titles, labels = [], []
+    for j in rows[: n_train // 2]:
+        t_titles.append(generate_misspelled_name(truth.transformed[j], rng))
+        labels.append(int(truth.ids[j]))
+    for _ in range(n_train // 2):
+        t_titles.append(" ".join(
+            "".join(rng.choice(string.ascii_lowercase) for _ in range(6)) for _ in range(2)))
+        labels.append(-1)
+    train = TitleSet.from_titles(
+        t_titles, ids=np.arange(len(t_titles)), labels=np.asarray(labels), config=cfg)
+    return truth, train
+
+
+def quick_train_model(cfg: Config, truth: TitleSet, rounds: int, device="cuda"):
+    """Train a small but real model on synthetic pairs, on ``device``: the
+    rows of ``quick_train_rows``, ``rounds`` boosting rounds with early
+    stopping as late as the last round.  Returns ``train_model``'s
+    (model, report); the report holds the phase timings and the pair
+    counts."""
+    from doppelspeller_tpu_torch.models.gbt import GBTParams
+    from doppelspeller_tpu_torch.models.trainer import train_model
+
+    truth, train = quick_train_rows(cfg, truth)
+    params = GBTParams.from_config(cfg)
+    params.num_boost_round = rounds
+    params.early_stopping_rounds = rounds
+    return train_model(cfg, train=train, truth=truth, params=params, save=False, device=device)

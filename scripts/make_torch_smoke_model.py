@@ -7,6 +7,19 @@ and saves the model in the JAX package's own ``model.npz`` format to
 reads that file with ``doppelspeller_tpu_torch.models.gbt.GBTModel.load``.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_model.py
+
+The port trains the same model itself, on the card, from the same world and
+the same draws (its trees differ where retrieval orders tied candidates
+otherwise and where f32 sums round otherwise; ``chip_smoke.py`` prints how
+many are equal and both models' accuracies on the same queries):
+
+    python -c "
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world, quick_train_model
+    cfg, truth, _, _ = make_synthetic_world(500_000, 16_384, seed=7)
+    model, report = quick_train_model(cfg, truth, 60, 'cuda')
+    model.save('model_r60_card.npz'); print(report['timings'])"
+
+The committed file stays the JAX package's: the smoke compares against it.
 """
 
 import hashlib

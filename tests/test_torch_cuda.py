@@ -343,3 +343,75 @@ def test_kernel_b_every_length_and_common_count(cuda):
     torch.cuda.synchronize()
     assert torch.equal(rk, rp) and torch.equal(pk, pp)
     assert len(torch.unique(rp)) > 90                        # of the 102 values -1..100
+
+
+# ------------------------------------------------------------------ training
+
+def _train_data(n, seed):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8).astype(np.float32)
+    y = (2.0 * X[:, 0] - 1.5 * X[:, 2] + 0.5 * X[:, 4] + 0.3 * rng.randn(n) > 0).astype(np.float32)
+    X[(rng.rand(n) < 0.3) & (y == 1), 1] = np.nan
+    return X, y
+
+
+def test_build_tree_on_the_card_equals_the_cpu(cuda):
+    """g in multiples of 1/8 and h = 1: every sum is exact, so the card's
+    tree equals the CPU's in structure; values to 1e-6."""
+    from doppelspeller_tpu_torch.models import gbt
+
+    X, _ = _train_data(3000, 0)
+    bins = torch.from_numpy(gbt.bin_features(X, gbt.compute_bin_edges(X)))
+    rng = np.random.RandomState(1)
+    g = torch.from_numpy((np.round((np.sign(X[:, 0]) * 2 + rng.randn(3000)) * 8) / 8).astype(np.float32))
+    h = torch.ones(3000)
+    kw = dict(depth=5, lambda_=1.0, min_child_weight=1.0)
+    cpu = gbt.build_tree(bins, g, h, **kw)
+    card = gbt.build_tree(bins.to(cuda), g.to(cuda), h.to(cuda), **kw)
+    for a, b in zip(cpu[:3] + cpu[4:5], card[:3] + card[4:5]):
+        assert torch.equal(a, b.cpu())
+    torch.testing.assert_close(card[3].cpu(), cpu[3], atol=1e-6, rtol=0)
+    torch.testing.assert_close(card[5].cpu(), cpu[5], atol=1e-6, rtol=0)
+
+
+def test_train_gbt_on_the_card_learns_as_the_cpu(cuda):
+    """20 rounds on the card against the same on the CPU: AUCs within 1e-3
+    and the last eval errors within 5 % of the eval rows' weight (the
+    card's histograms add with atomics and its sigmoid differs in the last
+    bit, so trees may part ways where splits tie); the forest walk of one
+    model gives the same probabilities on both devices to 1e-6."""
+    from doppelspeller_tpu_torch.models import gbt
+
+    X, y = _train_data(4000, 2)
+    Xe, ye = _train_data(1000, 3)
+    params = gbt.GBTParams(num_boost_round=20, early_stopping_rounds=20)
+    a = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, device=cuda)
+    c = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, device="cpu")
+    assert a.num_trees == c.num_trees == 20
+    np.testing.assert_array_equal(a.edges, c.edges)
+    assert abs(a.history["final_eval_auc"] - c.history["final_eval_auc"]) < 1e-3
+    assert abs(a.history["eval_error"][-1] - c.history["eval_error"][-1]) <= 0.05 * len(ye)
+    np.testing.assert_allclose(a.predict(Xe, device=cuda), a.predict(Xe, device="cpu"), atol=1e-6)
+
+
+def test_features_for_pairs_on_the_card_equals_the_cpu(cuda):
+    """The training feature matrix on the card (kernel B, WL buckets from 8
+    on) equals the CPU's plain path: ratios and counts exactly, the IDF
+    columns to 1e-5."""
+    from doppelspeller_tpu_torch.config import Config
+    from doppelspeller_tpu_torch.models.trainer import WordCounts
+    from doppelspeller_tpu_torch.ops import features
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+
+    cfg, truth, queries, _ = make_synthetic_world(2000, 400, config=Config(data_path="data"))
+    rng = np.random.RandomState(4)
+    pq, pt = rng.randint(0, 400, 3000), rng.randint(0, 2000, 3000)
+    counts = WordCounts(truth).matrix(truth.transformed)
+    args = (pq, pt, queries.encoded, queries.lengths, truth.encoded, truth.lengths, counts, cfg)
+    before = fk.window_best.launches
+    card = features.features_for_pairs(*args, cuda)
+    assert fk.window_best.launches > before
+    cpu = features.features_for_pairs(*args, "cpu")
+    np.testing.assert_array_equal(np.isnan(card), np.isnan(cpu))
+    np.testing.assert_array_equal(np.nan_to_num(card[:, :36]), np.nan_to_num(cpu[:, :36]))
+    np.testing.assert_allclose(np.nan_to_num(card), np.nan_to_num(cpu), atol=1e-5)
