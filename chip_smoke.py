@@ -38,6 +38,9 @@ Phases, each printing its seconds; any failure exits non-zero:
    latter's Matchers also a 100-query predict under the default
    ``cascade_impl`` (under 2,048 rows: every candidate scored, no waves)
    against the CPU run, and one ``predict(single=True)`` that must match.
+   Then a 301-title world at k = 100 under the default config, where 62 of
+   every row's candidates are padding positions: 120 queries, 300 under
+   ``cascade_impl="device"`` and one single title, card against CPU.
 9. train: ``synthetic.quick_train_model`` with 60 rounds on the card, on
    the first 50,000 titles of the 500k world (the call that made the
    committed model): exact retrieval for 2,000 train rows (kernel A, every
@@ -51,9 +54,12 @@ Phases, each printing its seconds; any failure exits non-zero:
    windows), and the largest call of each shape is timed.  The run's
    features (2,048 sampled pairs, 1e-5) and its first tree (every row; its
    f32 sums are exact, so it must be equal) are held against the port's
-   CPU path.  After the folded main path its Matcher takes this model
-   (``set_model``) and predicts the same 16,384 queries: accuracy must
-   reach 0.80; its distance to the committed model's is printed.
+   CPU path.  The same training runs once more and every tree must equal
+   the first run's bit for bit (the histograms add in fixed point); both
+   boosting times are printed.  After the folded main path its Matcher
+   takes this model (``set_model``) and predicts the same 16,384 queries:
+   accuracy must reach 0.80; its distance to the committed model's is
+   printed.
 10. folded main path: 500,000 titles x 16,384 queries (the bench world,
    seed 7), the committed 60-tree model, default Config (folded two-hash
    retrieval, bf16 coarse weights, adaptive model depth); one untimed and
@@ -75,6 +81,31 @@ Phases, each printing its seconds; any failure exits non-zero:
     E, with the planner's weights and bound), launched once per block with
     no launch of C, which must agree with the oracle engine's kernel D
     retrieval.
+14. cli: the command-line verbs at the reference example set's size.  One
+    world of 30,000 titles and 20,000 queries (seed 7) is written as the
+    example set's four pipe-delimited CSVs into a temporary data path
+    (truth; the first 5,000 queries with their labels as the train rows, a
+    cut from the example set's 10,000 that keeps the phase near a minute;
+    the last 10,000 as the test rows and their actuals).  In-process through
+    ``cli.main``, each verb with the launch counts set to 0 just before it:
+    ``build-index``; ``train-model`` with the default Config (1,000 rounds,
+    early stopping at 50); ``generate-predictions`` (it must load the
+    checkpoint); ``get-predictions-accuracy`` (accuracy from its counts at
+    least 0.80).  ``final_output.csv`` must equal an in-process
+    ``Matcher.predict`` on the same files and model row for row, and a
+    second ``generate-predictions`` and one run of ``python -m
+    doppelspeller_tpu_torch.cli generate-predictions`` as a process of its
+    own must write the same file.  ``closest-search-single-title`` on a
+    truth title must answer its id.  ``serve --profile latency`` answers a
+    bare title, an ``{"id", "title"}`` request, two batches of 8 (with the
+    single titles, kernel A at unions of 128, 256 and 512 rows) and a
+    malformed line as an in-process Matcher under the same overrides does,
+    then 200 single titles, whose p50 and p99 ``latency_ms`` are printed
+    with the card's name and power limit, and a single title's mean stage
+    seconds.  A and B must launch in
+    ``train-model`` and ``generate-predictions``, A in ``serve``, and C, D
+    and E nowhere; every call of A and B (A at serve's unions of 128-512
+    rows too) is held against the plain version as in the train phase.
 
 The line before the last is a JSON object with every kernel's route,
 source, launches in the path that carries it, error, times, bound (the
@@ -89,6 +120,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import json
+import logging
 import os
 import re
 import statistics
@@ -583,6 +615,52 @@ def check_small_world(torch, Matcher, make_world, model, cfg, label, small_batch
     return engine
 
 
+SMALL_TRUTH_TITLES = 301
+
+
+def check_small_truth(torch, Matcher, make_world, model, cfg0):
+    """A truth DB of 301 titles at k = 100 under the default config (tb =
+    2048, windows of 16): 62 of each row's 100 candidates are padding
+    positions, which the fuzzy and model stages read as the last title.  120
+    queries (one wave, every candidate scored) and 300 under
+    ``cascade_impl="device"`` (waves A/B), and a misspelling of the last
+    title as a single title, on the card and on the plain CPU path: match
+    ids and stages equal on every row (tolerance: 99 %, as the small
+    worlds')."""
+    import random
+
+    from doppelspeller_tpu_torch.utils.io import TitleSet
+    from doppelspeller_tpu_torch.utils.misspell import generate_misspelled_name
+
+    cfg, truth, queries, _ = make_world(SMALL_TRUTH_TITLES, 300, seed=SEED, config=cfg0)
+    m_cpu = Matcher(cfg, truth, model, device="cpu")
+    m_gpu = Matcher(cfg, truth, model, device="cuda")
+    _, cand = m_gpu.scorer.topk(queries, rows=np.arange(8))
+    n_pad = int((cand >= SMALL_TRUTH_TITLES).sum()) // 8
+    if n_pad == 0:
+        raise AssertionError("the 301-title world left no padding candidates")
+    agree = []
+    for n, impl in ((120, "auto"), (300, "device")):
+        few = TitleSet.from_titles(queries.titles[:n], ids=queries.ids[:n], config=cfg)
+        m_cpu.cfg = m_gpu.cfg = cfg.with_(cascade_impl=impl)
+        rc, rg = m_cpu.predict(few), m_gpu.predict(few)
+        same = (rc.match_title_id == rg.match_title_id) & (rc.stage == rg.stage)
+        agree.append((n, impl, int(same.sum())))
+        if same.mean() < 0.99:
+            raise AssertionError(f"small truth ({n} queries, {impl}): card and CPU agree on "
+                                 f"{int(same.sum())}/{n} rows")
+    last = TitleSet.from_titles([generate_misspelled_name(truth.transformed[-1], random.Random(1))],
+                                config=cfg)
+    sc, sg = (m.predict(last, single=True).single_result() for m in (m_cpu, m_gpu))
+    if sc["match_title_id"] != sg["match_title_id"] or sg["match_title_id"] != int(truth.ids[-1]):
+        raise AssertionError(f"small truth, the last title misspelled: CPU {sc}, card {sg}")
+    print(f"# small truth ({SMALL_TRUTH_TITLES} titles, k=100, default config: {n_pad} padding "
+          f"candidates a row): card agrees with the CPU path on "
+          f"{', '.join(f'{a}/{n} rows ({impl})' for n, impl, a in agree)}; the last title "
+          f"misspelled, single: both matched {sg['match_title_id']}", flush=True)
+    return {"padding_per_row": n_pad, "agree": agree}
+
+
 def check_small_batch(m_cpu, m_gpu, queries, cfg):
     """100 queries under the config's ``cascade_impl`` (``"auto"``: under
     2,048 rows every candidate is scored in one wave): the card against the
@@ -620,25 +698,23 @@ def check_small_batch(m_cpu, m_gpu, queries, cfg):
           f"{single['match_title_id']} at {single['prediction']:.4f}", flush=True)
 
 
-def check_train_kernels(torch, jk, fk, calls_a, calls_b):
-    """Kernels A and B against their plain versions on every call the
-    training made: what the kernel returned there (the values training
-    went on with) beside the plain version on the same arguments.  B exactly
-    equal; A, which gathers the union's rows from the packed index in its
-    loads, to rtol 1e-5 against the plain gather and scoring on the same
-    rounded weights, titles equal on untied windows.  Then the largest call
-    of each is timed (B once per distinct (TL, WL)).  Returns the stats."""
+def check_calls(torch, jk, fk, calls_a, calls_b, where):
+    """Kernels A and B against their plain versions on every call a path
+    made: what the kernel returned there (the values the path went on with)
+    beside the plain version on the same arguments.  B exactly equal; A,
+    which gathers the union's rows from the packed index in its loads, to
+    rtol 1e-5 against the plain gather and scoring on the same rounded
+    weights, titles equal on untied windows.  Returns (B's largest
+    arguments by (TL, WL), A's calls by union size, A's largest call)."""
     shapes_b = {}
     for args, _, (rk, pk) in calls_b:
         rp, pp = fk.window_best_plain(*args)
         if not (torch.equal(rk, rp) and torch.equal(pk, pp)):
-            raise AssertionError(f"kernel B differed from its plain version in training at "
+            raise AssertionError(f"kernel B differed from its plain version {where} at "
                                  f"{tuple(args[0].shape)} x TL={args[2].shape[1]}")
         key = (args[2].shape[1], args[0].shape[2])
         if key not in shapes_b or args[0].shape[0] > shapes_b[key][0].shape[0]:
             shapes_b[key] = args
-    stats_b = [check_kernel_b_on(torch, fk, args, f"in training, TL={tl}, WL={wl}", plain_calls=1)
-               for (tl, wl), args in sorted(shapes_b.items())]
 
     unions, n_untied, largest = {}, 0, None
     for (packed, w, sums, maxint, nt), kw, (wk, ak) in calls_a:
@@ -649,17 +725,27 @@ def check_train_kernels(torch, jk, fk, calls_a, calls_b):
         torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
         untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
         if not torch.equal(ak[untied], ap[untied]):
-            raise AssertionError(f"kernel A's window titles differed from the plain version in "
-                                 f"training at U={ids.shape[0]}")
+            raise AssertionError(f"kernel A's window titles differed from the plain version "
+                                 f"{where} at U={ids.shape[0]}")
         n_untied += int(untied.sum())
         unions[ids.shape[0]] = unions.get(ids.shape[0], 0) + 1
         if largest is None or ids.shape[0] > largest["ids"].shape[0]:
             largest = dict(rows=packed, ids=ids, w=w, sums=sums, maxint=maxint, nt=nt,
                            folds=kw["folds"])
-    print(f"# train: kernel B exactly equal to its plain version on all {len(calls_b)} calls "
+    print(f"# {where}: kernel B exactly equal to its plain version on all {len(calls_b)} calls "
           f"((TL, WL): {sorted(shapes_b)}); kernel A within rtol 1e-5 of the plain gather and "
           f"scoring on all {len(calls_a)} calls (U: calls {json.dumps(dict(sorted(unions.items())))}), "
           f"titles equal on {n_untied} untied windows", flush=True)
+    return shapes_b, unions, largest
+
+
+def check_train_kernels(torch, jk, fk, calls_a, calls_b):
+    """Every call the training made of A and B against the plain version
+    (``check_calls``); then the largest call of each is timed (B once per
+    distinct (TL, WL)).  Returns the stats."""
+    shapes_b, unions, largest = check_calls(torch, jk, fk, calls_a, calls_b, "train")
+    stats_b = [check_kernel_b_on(torch, fk, args, f"in training, TL={tl}, WL={wl}", plain_calls=1)
+               for (tl, wl), args in sorted(shapes_b.items())]
     V, nbytes = largest["rows"].shape
     stats_a = check_kernel_a_at(torch, jk, f"in training, folds=1, U={largest['ids'].shape[0]:,} of "
                                            f"{V:,} rows, {nbytes * 8:,} titles", largest)
@@ -671,9 +757,9 @@ def check_training_against_cpu(torch, trainer, gbt, features_call, boosting_call
     hold to the JAX package) on the run's own pairs.  The features of 2,048
     sampled pairs: NaNs in the same places, values to 1e-5.  The first tree
     on every row: at the base score ``g`` and ``h`` are multiples of 1/4,
-    every f32 sum of them is exact in any order, so the atomics cannot
-    matter and feat, is_leaf, the splits' bins and directions, the values
-    and the first custom errors must all be equal."""
+    every sum of them is exact in any order (the f32 totals and prefix sums
+    too), so feat, is_leaf, the splits' bins and directions, the values and
+    the first custom errors must all be equal."""
     (pairs, word_counts, truth, cfg, _dev), _, X = features_call
     idx = np.sort(np.random.RandomState(SEED).choice(len(pairs.kind), 2048, replace=False))
     few = trainer.TrainingPairs(kind=pairs.kind[idx], target=pairs.target[idx],
@@ -767,7 +853,31 @@ def train_on_card(torch, quick_train_model, cfg, truth, asset, counters):
     stats["kernels"] = check_train_kernels(torch, jk, fk, spy_a.calls, spy_b.calls)
     stats["against_cpu"] = check_training_against_cpu(torch, trainer, gbt, spy_x.calls[0],
                                                       spy_gbt.calls[0])
+    del spy_a, spy_b, spy_x, spy_gbt
+    stats["repeat"] = check_training_repeats(torch, quick_train_model, cfg, truth, model, report)
     return model, stats
+
+
+TREE_FIELDS = ("feat", "split_bin", "missing_left", "value", "is_leaf", "threshold")
+
+
+def check_training_repeats(torch, quick_train_model, cfg, truth, model, report):
+    """The same training once more: the histograms add in fixed point, so
+    every tree must equal the first run's bit for bit (feature, bin,
+    direction, f32 value).  Prints both runs' boosting seconds."""
+    torch.cuda.synchronize()
+    again, report2 = quick_train_model(cfg, truth, TRAIN_ROUNDS, "cuda")
+    torch.cuda.synchronize()
+    equal = [all(getattr(model, k)[i].tobytes() == getattr(again, k)[i].tobytes() for k in TREE_FIELDS)
+             for i in range(min(model.num_trees, again.num_trees))]
+    b1, b2 = report["timings"]["boosting_seconds"], report2["timings"]["boosting_seconds"]
+    print(f"# train, repeated: {sum(equal)} of {model.num_trees} trees equal bit for bit "
+          f"({', '.join(TREE_FIELDS)}); boosting {b1:.3f} s, then {b2:.3f} s", flush=True)
+    if model.num_trees != again.num_trees or not all(equal):
+        raise AssertionError(f"two trainings on the card differ: {sum(equal)} of "
+                             f"{model.num_trees} trees equal")
+    return {"trees_equal": sum(equal), "boosting_seconds": [b1, b2],
+            "timings_second_run": report2["timings"]}
 
 
 def reset_counts(counters):
@@ -829,6 +939,287 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
     if missing:
         raise AssertionError(f"kernels {missing} were not launched on the {label} path: {launches}")
     return matcher, res, launches
+
+
+# the reference example set's size (30,000 truth titles, 10,000 train and
+# 10,000 test rows), drawn as one synthetic world; the train rows are cut to
+# the world's first 5,000 queries to keep the phase near a minute (the test
+# rows stay the last 10,000)
+CLI_TITLES, CLI_QUERIES, CLI_TEST_ROWS, CLI_TRAIN_ROWS = 30_000, 20_000, 10_000, 5_000
+SERVE_TIMED = 200
+
+
+def write_example_set(make_world, cfg0, data_path):
+    """One world of 30,000 titles and 20,000 queries (seed 7) as the four
+    pipe-delimited CSVs of the example set: the truth, the first
+    ``CLI_TRAIN_ROWS`` queries with their ``q_actual`` as the train rows,
+    the last 10,000 as the test rows and their actuals.  Returns (truth,
+    test titles, test actuals)."""
+    import csv
+
+    _, truth, queries, actual = make_world(CLI_TITLES, CLI_QUERIES, seed=SEED, config=cfg0)
+
+    def write(name, header, rows):
+        with open(os.path.join(data_path, name), "w", newline="") as f:
+            w = csv.writer(f, delimiter="|", lineterminator="\n")
+            w.writerow(header)
+            w.writerows(rows)
+
+    n, t0 = CLI_TRAIN_ROWS, CLI_QUERIES - CLI_TEST_ROWS
+    write("example_truth.csv", ["company_id", "name"], zip(truth.ids.tolist(), truth.titles))
+    write("example_train.csv", ["train_index", "name", "company_id"],
+          ((i, queries.titles[i], int(actual[i])) for i in range(n)))
+    write("example_test.csv", ["test_index", "name"],
+          ((i - t0, queries.titles[i]) for i in range(t0, CLI_QUERIES)))
+    write("example_test_with_actuals.csv", ["test_index", "name", "company_id"],
+          ((i - t0, queries.titles[i], int(actual[i])) for i in range(t0, CLI_QUERIES)))
+    share = float((actual[:n] == -1).mean())
+    print(f"# cli: example set written ({CLI_TITLES} truth titles, {n} train rows, "
+          f"{CLI_TEST_ROWS} test rows); {100 * share:.1f} % of the train rows are labelled -1 "
+          f"(the reference example set: about 40 %)", flush=True)
+    return truth, queries.titles[t0:], actual[t0:]
+
+
+class LogRecords(logging.Handler):
+    """Keeps the package's log messages (INFO and up) of the cli phase."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def run_verb(torch, cli, argv, counters, stdin=None):
+    """One verb in-process through ``cli.main``, with the launch counts set
+    to 0 just before it and read just after.  Returns (stdout, stderr,
+    launches, seconds)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    saved_stdin = sys.stdin
+    sys.stdin = io.StringIO(stdin or "")
+    reset_counts(counters)
+    t = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = saved_stdin
+    dt = time.time() - t
+    launches = read_counts(counters)
+    if argv[0] != "serve":
+        for line in out.getvalue().splitlines():
+            print(f"# cli {argv[0]} | {line}", flush=True)
+    print(f"# cli {argv[0]}: {dt:.3f} s, launches {json.dumps(launches)}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}: {err.getvalue()}")
+    if launches["C"] or launches["D"] or launches["E"]:
+        raise AssertionError(f"cli {argv[0]} launched a kernel off its path: {launches}")
+    return out.getvalue(), err.getvalue(), launches, dt
+
+
+def union_batch(matcher, cfg, titles, width, lo, hi):
+    """The first 8 queries of ``width`` consecutive titles each, none an
+    exact match, whose block's trigram union lies in (lo, hi] rows."""
+    from doppelspeller_tpu_torch.ops.ngram_index import plan_query_blocks
+    from doppelspeller_tpu_torch.utils.io import TitleSet
+
+    for j in range(0, len(titles) - 8 * width, 8 * width):
+        batch = [" ".join(titles[j + i * width : j + (i + 1) * width]) for i in range(8)]
+        qs = TitleSet.from_titles(batch, config=cfg)
+        if any(t in matcher.reverse for t in qs.transformed):
+            continue
+        if lo < plan_query_blocks(qs, matcher.index, cfg)[0].union_ids.shape[0] <= hi:
+            return batch
+    raise AssertionError(f"no batch of 8 x {width} titles has a union in ({lo}, {hi}]")
+
+
+def read_output(path):
+    from doppelspeller_tpu_torch.utils.io import as_int64, read_csv
+
+    cols = read_csv(path, "|")
+    return dict(zip(as_int64(cols["test_index"]).tolist(), as_int64(cols["title_id"]).tolist()))
+
+
+def run_cli_path(torch, counters, smi):
+    """The command-line verbs at the example set's size, in-process through
+    ``cli.main`` on the card (see the module docstring, phase 14)."""
+    import ast
+    import tempfile
+    from collections import Counter
+
+    from doppelspeller_tpu_torch import cli
+    from doppelspeller_tpu_torch.config import Config, get_config, set_config
+    from doppelspeller_tpu_torch.models import trainer
+    from doppelspeller_tpu_torch.ops import features
+    from doppelspeller_tpu_torch.ops import features_kernels as fk
+    from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+    from doppelspeller_tpu_torch.utils.io import TitleSet, load_test_data, single_title_set
+
+    logging.basicConfig(stream=sys.stdout, level=logging.WARNING,
+                        format="[%(asctime)s]%(levelname)s|%(name)s|%(message)s")
+    records = LogRecords()
+    pkg_log = logging.getLogger("doppelspeller_tpu_torch")
+    pkg_log.addHandler(records)
+    pkg_log.setLevel(logging.INFO)
+    pkg_log.propagate = False
+    stats = {"launches": {}, "seconds": {}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="doppel_cli_") as data:
+            set_config(Config(data_path=data))
+            cfg = get_config()
+            t = time.time()
+            truth, test_titles, test_actual = write_example_set(make_synthetic_world, cfg, data)
+            phase("cli_world", t)
+
+            def verb(argv, stdin=None, spy=True):
+                with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
+                    out, err, launches, dt = run_verb(torch, cli, argv, counters, stdin)
+                stats["launches"][argv[0]] = launches
+                stats["seconds"][argv[0]] = dt
+                if launches["A"] != launches["A gathering"]:
+                    raise AssertionError(f"cli {argv[0]}: A launched without gathering: {launches}")
+                if spy:
+                    t1 = time.time()
+                    _, unions, _ = check_calls(torch, jk, fk, spy_a.calls, spy_b.calls, f"cli {argv[0]}")
+                    stats.setdefault("unions", {})[argv[0]] = unions
+                    print(f"# cli {argv[0]}: kernel checks {time.time() - t1:.3f} s", flush=True)
+                return out, err, launches
+
+            out, _, _ = verb(["build-index"], spy=False)
+            if f"index saved to {cfg.index_path} ({CLI_TITLES} titles" not in out:
+                raise AssertionError(f"build-index printed {out!r}")
+
+            with Spy(trainer, "train_model") as spy_t:
+                out, _, lt = verb(["train-model"])
+            model, report = spy_t.calls[0][2]
+            del spy_t
+            print(f"# cli train-model: {model.num_trees} trees of at most {cfg.gbt_num_boost_round} "
+                  f"(early stopping at {cfg.gbt_early_stopping_rounds}), best_ntree_limit "
+                  f"{model.best_ntree_limit}; timings (s) "
+                  f"{json.dumps({k: round(v, 3) for k, v in report['timings'].items()})}; pairs "
+                  f"{report['n_pairs']} {json.dumps(report['pairs_by_kind'])}", flush=True)
+            stats["train"] = {"trees": model.num_trees, "best_ntree_limit": model.best_ntree_limit,
+                              "timings": report["timings"], "n_pairs": report["n_pairs"],
+                              "pairs_by_kind": report["pairs_by_kind"]}
+            if lt["A"] == 0 or lt["B"] == 0 or (cfg.gbt_num_boost_round, cfg.gbt_early_stopping_rounds) != (1000, 50):
+                raise AssertionError(f"train-model: launches {lt}, rounds {cfg.gbt_num_boost_round}")
+
+            def generate(label):
+                records.messages.clear()
+                _, _, lg = verb(["generate-predictions"])
+                if lg["A"] == 0 or lg["B"] == 0:
+                    raise AssertionError(f"generate-predictions ({label}) did not launch A and B: {lg}")
+                loaded = any("loaded index checkpoint" in m for m in records.messages)
+                print(f"# cli generate-predictions ({label}): loaded the index checkpoint: {loaded}",
+                      flush=True)
+                if not loaded:
+                    raise AssertionError(f"generate-predictions ({label}) did not load the checkpoint")
+                with open(cfg.final_output_path, "rb") as f:
+                    return f.read()
+
+            first = generate("first")
+            out, _, _ = verb(["get-predictions-accuracy"], spy=False)
+            counts = {k: int(v) for k, v in re.findall(r"^(.+?)\s{2,}(\d+)$", out, re.M)}
+            acc = (counts["Correctly matched titles"] + counts["Correctly marked as not-found"]) / len(test_titles)
+            stats["report"], stats["accuracy"] = counts, acc
+            print(f"# cli accuracy from the report: {acc:.4f} (floor {ACCURACY_FLOOR})", flush=True)
+            if acc < ACCURACY_FLOOR:
+                raise AssertionError(f"cli accuracy {acc:.4f} < {ACCURACY_FLOOR}")
+
+            # the same files and model through an in-process Matcher
+            t = time.time()
+            ref = Matcher(cfg, device="cuda").predict(load_test_data(cfg))
+            written = read_output(cfg.final_output_path)
+            same = sum(written[int(i)] == int(m) for i, m in zip(ref.test_index, ref.match_title_id))
+            print(f"# cli final_output.csv equals an in-process Matcher.predict on {same}/{len(ref.test_index)} "
+                  f"rows ({time.time() - t:.3f} s)", flush=True)
+            if same != len(ref.test_index) or len(written) != len(ref.test_index):
+                raise AssertionError("final_output.csv differs from the in-process predict")
+            if generate("second") != first:
+                raise AssertionError("a second generate-predictions wrote another file")
+
+            # the module entry as its own process
+            t = time.time()
+            env = dict(os.environ, PROJECT_DATA_PATH=data, PYTHONPATH=ROOT)
+            proc = subprocess.run([sys.executable, "-m", "doppelspeller_tpu_torch.cli", "generate-predictions"],
+                                  cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+            with open(cfg.final_output_path, "rb") as f:
+                sub_same = f.read() == first
+            stats["seconds"]["subprocess"] = time.time() - t
+            print(f"# cli python -m doppelspeller_tpu_torch.cli generate-predictions: exit "
+                  f"{proc.returncode}, {stats['seconds']['subprocess']:.3f} s, same file: {sub_same}; "
+                  f"stdout {proc.stdout.strip()!r}", flush=True)
+            if proc.returncode != 0 or not sub_same:
+                raise AssertionError(f"the module entry failed or wrote another file: {proc.stderr[-2000:]}")
+
+            # single titles
+            seen = Counter(truth.transformed)
+            i = next(i for i, t in enumerate(truth.transformed) if seen[t] == 1)
+            out, _, _ = verb(["closest-search-single-title", "-t", truth.titles[i]], spy=False)
+            found = ast.literal_eval(out.strip().split("Closest match: ", 1)[1])
+            if found["match_title_id"] != int(truth.ids[i]):
+                raise AssertionError(f"closest-search-single-title {truth.titles[i]!r}: {found}")
+
+            # serve under the latency profile against an in-process Matcher
+            lat_cfg = cfg.with_(**cli.LATENCY_PROFILE)
+            m_lat = Matcher(lat_cfg, device="cuda")
+            # a single title takes a union of 128 rows; a batch of 8 titles
+            # and one of 8 pairs of titles, none an exact match, 256 and 512:
+            # the profile's small unions
+            batches = [union_batch(m_lat, lat_cfg, test_titles, w, lo, hi)
+                       for w, lo, hi in ((1, 128, 256), (2, 256, 512))]
+            first = len(test_titles) - 2 - SERVE_TIMED
+            requests = ([test_titles[first], json.dumps({"id": 7, "title": test_titles[first + 1]})]
+                        + [json.dumps({"titles": b}) for b in batches] + ["{not json"])
+            timed = list(test_titles[first + 2 : first + 2 + SERVE_TIMED])
+            out, err, ls = verb(["serve", "--profile", "latency"],
+                                "\n".join(requests + timed) + "\n")
+            replies = [json.loads(line) for line in out.splitlines()]
+            expect = [m_lat.predict(single_title_set(test_titles[first + j], lat_cfg),
+                                    single=True).single_result() for j in (0, 1)]
+            expect[0]["title"] = test_titles[first]
+            expect[1].update(test_index=7, title=test_titles[first + 1])
+            for b in batches:
+                res = m_lat.predict(TitleSet.from_titles(b, ids=np.arange(8), config=lat_cfg))
+                expect.append({"results": [
+                    {"title": b[j], "transformed_title": res.transformed[j],
+                     "match_title_id": int(res.match_title_id[j]),
+                     "match_transformed_title": res.match_transformed[j],
+                     "prediction": float(res.prediction[j])} for j in range(8)]})
+            n_req = len(requests)
+            got = [{k: v for k, v in r.items() if k != "latency_ms"} for r in replies[: n_req - 1]]
+            if got != expect or "error" not in replies[n_req - 1] or len(replies) != n_req + SERVE_TIMED:
+                raise AssertionError(f"serve's replies differ from the in-process Matcher: {got} vs {expect}")
+            if not {128, 256, 512} <= set(stats["unions"]["serve"]):
+                raise AssertionError(f"serve's calls of A missed a union of 128-512 rows: "
+                                     f"{stats['unions']['serve']}")
+            lat = np.array([r["latency_ms"] for r in replies[n_req:]])
+            p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+            # where a single title's time goes: the same path's stage clocks
+            split = [m_lat.predict(single_title_set(t, lat_cfg), single=True).stage_seconds
+                     for t in timed[:50]]
+            split = {k: 1e3 * float(np.mean([d[k] for d in split])) for k in split[0]}
+            stats["serve"] = {"p50_ms": p50, "p99_ms": p99, "requests": SERVE_TIMED, "card": smi,
+                              "ready": err.strip(), "stage_ms_mean_of_50": split}
+            print(f"# cli serve --profile latency: {err.strip()}; {n_req - 1} scripted replies "
+                  f"equal the in-process Matcher's, the malformed line answered "
+                  f"{replies[n_req - 1]}; {SERVE_TIMED} single titles after warm-up: p50 {p50:.3f} ms, "
+                  f"p99 {p99:.3f} ms (latency_ms of the replies, host clock around predict) on {smi}; "
+                  f"a single title's stage_seconds in ms, mean of 50: "
+                  f"{json.dumps({k: round(v, 3) for k, v in split.items()})}", flush=True)
+            if ls["A"] == 0:
+                raise AssertionError(f"serve did not launch kernel A: {ls}")
+    finally:
+        pkg_log.removeHandler(records)
+        pkg_log.propagate = True
+        pkg_log.setLevel(logging.NOTSET)
+    return stats
 
 
 def main() -> int:
@@ -903,6 +1294,7 @@ def main() -> int:
                                small_batch=True)
     if engine != "exact":
         raise AssertionError("the default config did not resolve to exact retrieval at 4,096 titles")
+    check_small_truth(torch, Matcher, make_synthetic_world, model, cfg0)
     phase("small_worlds", t)
 
     def packed_build_seconds(matcher):
@@ -1038,6 +1430,15 @@ def main() -> int:
         raise AssertionError(f"the v1 path disagrees with kernel D, or did not launch E once per "
                              f"block without C: {lv}")
     phase("v1_path", t)
+    del oracle, engine, folded, v1, v2
+    torch.cuda.empty_cache()
+
+    # ---- the command-line verbs at the example set's size ----
+    t = time.time()
+    cli_stats = run_cli_path(torch, counters, smi)
+    phase("cli", t)
+    cli_a = {verb: n["A"] for verb, n in cli_stats["launches"].items()}
+    cli_b = {verb: n["B"] for verb, n in cli_stats["launches"].items()}
 
     def entry(name, key, source, replaces, path, counts, stats, **extra):
         return {"name": name, "route": "cuda", "source": f"doppelspeller_tpu_torch/csrc/{source}",
@@ -1051,12 +1452,14 @@ def main() -> int:
               f"{lx['A']} times, {lx['A gathering']} of them gathering: there its loads carry "
               "kernel C's function (jaccard_pallas.py:29); the training path launched it "
               f"{train['launches']['A']} times, every one gathering", la, ka, hgmma=hgmma["A"],
-              launches_by_path={"folded": la["A"], "exact": lx["A"], "train": train["launches"]["A"]},
+              launches_by_path={"folded": la["A"], "exact": lx["A"], "train": train["launches"]["A"],
+                                "cli": cli_a},
               **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
               f"folded main path (500k); exact main path (150k) launched it {lx['B']} times, the "
               f"training path {train['launches']['B']} times", la, kb,
-              launches_by_path={"folded": la["B"], "exact": lx["B"], "train": train["launches"]["B"]},
+              launches_by_path={"folded": la["B"], "exact": lx["B"], "train": train["launches"]["B"],
+                                "cli": cli_b},
               **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
@@ -1084,6 +1487,7 @@ def main() -> int:
     print(f"# packed index build: {build_150k:.3f} s at {N_TITLES_EXACT} titles, "
           f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)
     print(f"# train {json.dumps(train)}", flush=True)
+    print(f"# cli {json.dumps(cli_stats)}", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

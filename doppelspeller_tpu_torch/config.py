@@ -139,9 +139,54 @@ class Config:
         if self.max_characters > 255:
             raise ValueError("titles are limited to 255 chars (uint8 encoding)")
 
+    # -- derived paths --
+    def path(self, name: str) -> str:
+        return os.path.join(self.data_path, name)
+
+    @property
+    def ground_truth_path(self) -> str:
+        return self.path(self.ground_truth_file)
+
+    @property
+    def train_path(self) -> str:
+        return self.path(self.train_file)
+
+    @property
+    def test_path(self) -> str:
+        return self.path(self.test_file)
+
+    @property
+    def test_with_actuals_path(self) -> str:
+        return self.path(self.test_with_actuals_file)
+
+    @property
+    def final_output_path(self) -> str:
+        return self.path(self.final_output_file)
+
     @property
     def model_path(self) -> str:
-        return os.path.join(self.data_path, self.model_file)
+        return self.path(self.model_file)
+
+    @property
+    def index_path(self) -> str:
+        return self.path(self.index_file)
 
     def with_(self, **kwargs) -> "Config":
         return replace(self, **kwargs)
+
+
+_DEFAULT: Config | None = None
+
+
+def get_config() -> Config:
+    """The process's configuration: ``set_config``'s, else a default
+    ``Config()`` (built on first use, so ``PROJECT_DATA_PATH`` is read then)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Config()
+    return _DEFAULT
+
+
+def set_config(config: Config) -> None:
+    global _DEFAULT
+    _DEFAULT = config

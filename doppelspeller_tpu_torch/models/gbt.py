@@ -12,17 +12,17 @@ unless the caller names the CPU.
   and the custom error FN + β·FP at the probability threshold.
 * Early stopping on the eval custom error with ``best_ntree_limit``.
 
-One arithmetic on both devices, the reference's segment-sum path: the level
-histograms are f32 sums of f32 ``g`` and ``h`` over the key
-(node, feature, bin), formed with ``index_add_``; the last level's leaf
-sums take ``g`` and ``h`` rounded to bf16, as the reference does on every
-path.  The bins' totals and prefix sums are one ``sum`` and one ``cumsum``.
-The order of these f32 adds is the device's own: on the CPU ``index_add_``
-adds in row order, on the card with atomics, so that two trainings there
-may part ways where two splits tie within rounding (rows that share a
-margin and a label share ``g`` and ``h``, so a small node often has
-several splits that are tied in exact arithmetic).  Routing is
-plain indexing.  Train and eval
+One arithmetic on both devices: the level histograms are sums of ``g``
+and ``h`` over the key (node, feature, bin), formed with ``index_add_`` in
+fixed point (int64 multiples of 2^-s, s chosen per tree from the largest
+``|g|`` or ``|h|`` so that no sum can overflow), so they do not depend on
+the order of the adds: the card's atomics give the CPU's sums, and two
+trainings on the card give the same trees bit for bit.  Each sum rounds
+once, to f32, where the reference's f32 segment sums round at every add.
+The last level's leaf sums take ``g`` and ``h`` rounded to bf16, as the
+reference does on every path.  The bins' totals and prefix sums are one
+``sum`` and one ``cumsum`` in f32, whose order on either device is fixed.
+Routing is plain indexing.  Train and eval
 rows share one sample axis under {0, 1} masks; every row is routed through
 each new tree and its margin is updated from the leaf it reaches, so no
 round walks the forest.
@@ -160,13 +160,36 @@ def bin_features(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------- tree growth
 
-def _segment_sum(key: torch.Tensor, values: torch.Tensor, n_segments: int) -> torch.Tensor:
-    """float32[n_segments] sums of ``values`` (M,) by ``key`` (M,).  On the
-    CPU ``index_add_`` is a serial loop in row order; on the card it adds
-    with atomics, so the order of a segment's f32 adds changes from run to
-    run."""
-    out = torch.zeros(n_segments, dtype=torch.float32, device=values.device)
-    return out.index_add_(0, key, values)
+# fixed-point histograms: every sum stays below 2^FIXED_POINT_BITS in int64,
+# and a value keeps at least MIN_FIXED_POINT_SHIFT bits after its binary point
+FIXED_POINT_BITS = 62
+MIN_FIXED_POINT_SHIFT = 24
+
+
+def fixed_point_shift(max_abs: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """The largest s with ``n_keys · max_abs · 2^s < 2^62`` for a float32
+    scalar ``max_abs`` (at most 100, so that 2^-s stays a normal f32).
+    Rounding the product in f32 only lowers s: it never falls below a power
+    of two it lies above."""
+    _, e = torch.frexp(max_abs * n_keys)
+    return (FIXED_POINT_BITS - e).clamp(max=100)
+
+
+def _quantize(v: torch.Tensor, n_keys: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64 round(v · 2^s), 2^-s) for ``fixed_point_shift(max|v|, n_keys)``:
+    any ``n_keys`` of the integers add up without overflow."""
+    s = fixed_point_shift(v.abs().max(), n_keys).to(torch.float32)
+    return torch.round(v * torch.exp2(s)).to(torch.int64), torch.exp2(-s)
+
+
+def _segment_sum(key: torch.Tensor, q: torch.Tensor, unit: torch.Tensor,
+                 n_segments: int) -> torch.Tensor:
+    """float32[n_segments] sums of the fixed-point values ``q`` int64 (M,)
+    by ``key`` (M,), times ``unit``.  Integer addition is exact in any
+    order, so the card's atomics give the CPU's sums: each sum rounds once,
+    to f32."""
+    out = torch.zeros(n_segments, dtype=torch.int64, device=q.device)
+    return out.index_add_(0, key, q).to(torch.float32) * unit
 
 
 def build_tree(
@@ -207,6 +230,9 @@ def build_tree(
     done = torch.zeros((N,), dtype=torch.bool, device=dev)    # sample sits at a final leaf
     contrib = torch.zeros((N,), dtype=torch.float32, device=dev)
     neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    # every level's keys: N·F values, the done rows' all in one spare slot
+    gq, g_unit = _quantize(g, N * F)
+    hq, h_unit = _quantize(h, N * F)
 
     for level in range(depth):
         n_nodes = 2 ** level
@@ -215,8 +241,9 @@ def build_tree(
         local = torch.where(done, 0, node - offset)
         S = n_nodes * F * NB
         key = torch.where(done[:, None], S, local[:, None] * (F * NB) + fb).reshape(-1)
-        G = _segment_sum(key, g[:, None].expand(N, F).reshape(-1), S + 1)[:S].reshape(n_nodes, F, NB)
-        H = _segment_sum(key, h[:, None].expand(N, F).reshape(-1), S + 1)[:S].reshape(n_nodes, F, NB)
+        G = _segment_sum(key, gq[:, None].expand(N, F).reshape(-1), g_unit, S + 1)[:S]
+        H = _segment_sum(key, hq[:, None].expand(N, F).reshape(-1), h_unit, S + 1)[:S]
+        G, H = G.reshape(n_nodes, F, NB), H.reshape(n_nodes, F, NB)
 
         Gm, Hm = G[..., MISSING_BIN], H[..., MISSING_BIN]
         Gv, Hv = G[..., :MISSING_BIN], H[..., :MISSING_BIN]
@@ -267,8 +294,9 @@ def build_tree(
     n_nodes = 2 ** depth
     offset = n_nodes - 1
     local = torch.where(done, n_nodes, node - offset)
-    Gn = _segment_sum(local, g.to(torch.bfloat16).to(torch.float32), n_nodes + 1)[:n_nodes]
-    Hn = _segment_sum(local, h.to(torch.bfloat16).to(torch.float32), n_nodes + 1)[:n_nodes]
+    Gn = _segment_sum(local, *_quantize(g.to(torch.bfloat16).to(torch.float32), N), n_nodes + 1)
+    Hn = _segment_sum(local, *_quantize(h.to(torch.bfloat16).to(torch.float32), N), n_nodes + 1)
+    Gn, Hn = Gn[:n_nodes], Hn[:n_nodes]
     leaf_val = -Gn / (Hn + lambda_)
     contrib = contrib + torch.where(done, 0.0, leaf_val[local.clamp(max=n_nodes - 1)])
     value[offset:] = leaf_val
@@ -480,6 +508,13 @@ def train_gbt(
     p = params or GBTParams()
     dev = resolve_device(device)
     N = X.shape[0]
+    # |g| <= max(beta, 1) and |h| <= max(beta, 1) / 4 on 0/1 targets, so
+    # every tree's shift is at least this one
+    shift = int(fixed_point_shift(torch.tensor(max(p.beta, 1.0)), (N + len(X_eval)) * X.shape[1]))
+    if shift < MIN_FIXED_POINT_SHIFT:
+        raise ValueError(
+            f"{N + len(X_eval)} rows x {X.shape[1]} features leave the fixed-point "
+            f"histograms {shift} fractional bits (at least {MIN_FIXED_POINT_SHIFT} needed)")
     edges = compute_bin_edges(X)
     y_eval_np = y_eval.astype(np.float32)
     Ne = len(X_eval)

@@ -34,14 +34,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from doppelspeller_tpu_torch import constants as c
-from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.config import Config, get_config
 from doppelspeller_tpu_torch.device import resolve_device, synchronize
 from doppelspeller_tpu_torch.models.gbt import GBTModel, GBTParams, custom_error, train_gbt
 from doppelspeller_tpu_torch.ops.features import features_for_pairs
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
 from doppelspeller_tpu_torch.utils import text as T
-from doppelspeller_tpu_torch.utils.io import TitleSet
+from doppelspeller_tpu_torch.utils.io import TitleSet, load_ground_truth, load_train_data
 from doppelspeller_tpu_torch.utils.misspell import generate_misspelled_name
 
 LOGGER = logging.getLogger(__name__)
@@ -201,7 +201,7 @@ def error_matrix(pred: np.ndarray, target: np.ndarray, threshold: float):
 
 
 def train_model(
-    config: Config,
+    config: Optional[Config] = None,
     train: Optional[TitleSet] = None,
     truth: Optional[TitleSet] = None,
     scorer: Optional[JaccardScorer] = None,
@@ -214,13 +214,11 @@ def train_model(
     pair counts, timings).  ``save`` writes the model to
     ``config.model_path``.
 
-    Candidate retrieval is exact at any size: the scorer is built without
-    the truth encodings, which only the folded engine needs."""
-    cfg = config
-    if train is None or truth is None:
-        raise ValueError(
-            "train_model needs the train and truth TitleSets: the CSV loaders "
-            "are not part of this package yet, build them with TitleSet.from_titles")
+    ``config`` defaults to ``get_config()``, ``truth`` and ``train`` to
+    the CSV files it names.  Candidate retrieval is exact at any size: the
+    scorer is built without the truth encodings, which only the folded
+    engine needs."""
+    cfg = config or get_config()
     dev = resolve_device(device)
 
     def clock() -> float:
@@ -229,6 +227,8 @@ def train_model(
 
     timings = {}
     t0 = clock()
+    truth = truth or load_ground_truth(cfg)
+    train = train or load_train_data(cfg)
     if scorer is None:
         scorer = JaccardScorer(build_truth_index(truth, cfg), cfg, dev)
     timings["setup_seconds"] = clock() - t0

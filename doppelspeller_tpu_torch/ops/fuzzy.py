@@ -42,7 +42,10 @@ def fuzzy_decide(
     """Returns (matched bool[R], best_pos int32[R], best_ratio int32[R],
     over bool[R], probe_tl int32[R], probe_wl int32[R])."""
     R, K = cand.shape
-    pos = cand.reshape(-1).to(torch.int64)
+    # a padding candidate (position >= the truth count, score -1: window
+    # select over fewer titles than k windows) reads the last title, as the
+    # reference's clamped device gathers do; best_pos keeps the position
+    pos = cand.reshape(-1).to(torch.int64).clamp(max=t_len.shape[0] - 1)
     tle = t_len[pos]
     ttsl = t_ts_len[pos]
     probe_tl = tle.reshape(R, K).max(dim=1).values

@@ -21,8 +21,25 @@ from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
 
+# the checkpoint's format tag: a file without it (the JAX package's
+# ``index.npz``, which holds the packed matrix) is not this package's
+INDEX_FORMAT = "doppelspeller_tpu_torch.TruthIndex/1"
+_INDEX_ARRAYS = ("idf", "df", "sums", "title_ids", "trigrams")
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def title_content_hash(encoded: np.ndarray, lengths: np.ndarray) -> str:
+    """Digest of the encoded titles: detects truth-title edits that keep the
+    same ids and count (the checkpoint's staleness guard)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(lengths.astype(np.int32)).tobytes())
+    h.update(np.ascontiguousarray(encoded).tobytes())
+    return h.hexdigest()
 
 
 @dataclass
@@ -36,10 +53,38 @@ class TruthIndex:
     max_idf: float          # fallback IDF for query trigrams absent in truth
     trigrams: np.ndarray    # int32[nt, W] per-title sorted unique trigram ids,
                             #   BIG_TRIGRAM in unused slots
+    content_hash: str = ""  # title_content_hash of the truth titles
 
     @property
     def vocab_size(self) -> int:
         return self.idf.shape[0]
+
+    @property
+    def packed_nbytes(self) -> int:
+        """Logical size of the bit-packed (V, ntp/8) matrix, which the exact
+        engine builds on the device from the trigram ids."""
+        return self.vocab_size * (self.padded_titles // 8)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the index: its statistics, the trigram ids and the
+        content hash, under ``INDEX_FORMAT``."""
+        np.savez_compressed(
+            path, format=np.str_(INDEX_FORMAT),
+            **{k: getattr(self, k) for k in _INDEX_ARRAYS},
+            num_titles=np.int64(self.num_titles), padded_titles=np.int64(self.padded_titles),
+            max_idf=np.float32(self.max_idf), content_hash=np.str_(self.content_hash),
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "TruthIndex":
+        """Read a checkpoint of ``save``; ValueError for a file of another
+        format."""
+        with np.load(path) as z:
+            if "format" not in z.files or str(z["format"]) != INDEX_FORMAT:
+                raise ValueError(f"{path} is not a {INDEX_FORMAT} checkpoint")
+            return cls(**{k: z[k] for k in _INDEX_ARRAYS},
+                       num_titles=int(z["num_titles"]), padded_titles=int(z["padded_titles"]),
+                       max_idf=float(z["max_idf"]), content_hash=str(z["content_hash"]))
 
     def fallback_idf(self) -> np.ndarray:
         """float32[V] per-trigram weight of the max-intersection bound: the
@@ -63,6 +108,7 @@ def build_truth_index(truth: TitleSet, config: Config) -> TruthIndex:
     return TruthIndex(
         idf=idf, df=df, sums=sums, title_ids=truth.ids.copy(), num_titles=nt,
         padded_titles=ntp, max_idf=max_idf, trigrams=ids,
+        content_hash=title_content_hash(truth.encoded, truth.lengths),
     )
 
 

@@ -98,7 +98,8 @@ class RerankEngine(nn.Module):
         K = narrow if narrow else cand.shape[1] - col_lo
         R = cand.shape[0]
         cd = cand[:, col_lo : col_lo + K]
-        pair_t = cd.reshape(-1).to(torch.int64)
+        # padding candidates read the last title (see ``fuzzy_decide``)
+        pair_t = cd.reshape(-1).to(torch.int64).clamp(max=self.t_len.shape[0] - 1)
         rows = torch.arange(R, device=cand.device).repeat_interleave(K)
         preds = torch.empty(R * K, dtype=torch.float32, device=cand.device)
         for s in range(0, R * K, _PAIR_CHUNK):

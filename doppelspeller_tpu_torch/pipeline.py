@@ -30,6 +30,7 @@ and taken ``model_slab`` at a time.  Results do not depend on that padding.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -37,17 +38,17 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from doppelspeller_tpu_torch.config import Config
+from doppelspeller_tpu_torch.config import Config, get_config
 from doppelspeller_tpu_torch.device import resolve_device, synchronize
 from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.models.trainer import WordCounts
 from doppelspeller_tpu_torch.ops.features import split_words_host
 from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
-from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, title_content_hash
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
 from doppelspeller_tpu_torch.utils import text as T
-from doppelspeller_tpu_torch.utils.io import TitleSet
+from doppelspeller_tpu_torch.utils.io import TitleSet, as_int64, load_ground_truth, read_csv
 
 LOGGER = logging.getLogger(__name__)
 
@@ -68,6 +69,16 @@ class PredictionResult:
     stage_counts: Dict[str, int] = field(default_factory=dict)
     stage_seconds: Dict[str, float] = field(default_factory=dict)
 
+    def save_csv(self, path: str, delimiter: str = "|") -> None:
+        """``title_id|test_index`` rows sorted by ``test_index``, as the
+        reference's ``to_output_frame().to_csv(path, index=False, sep=...)``
+        writes them (its sort is numpy's default quicksort, taken here too)."""
+        order = np.argsort(self.test_index, kind="quicksort")
+        with open(path, "w", newline="") as f:
+            f.write(f"title_id{delimiter}test_index\n")
+            f.writelines(f"{int(self.match_title_id[i])}{delimiter}{int(self.test_index[i])}\n"
+                         for i in order)
+
     def single_result(self) -> dict:
         """The single-title dict of the reference (first row of the result)."""
         return {
@@ -85,13 +96,24 @@ DEVICE_CASCADE_MIN_ROWS = 2048
 
 
 class Matcher:
-    """End-to-end matcher over a truth database, on one device."""
+    """End-to-end matcher over a truth database, on one device.
 
-    def __init__(self, config: Config, truth: TitleSet, model: GBTModel, device="cuda"):
-        self.cfg = config
+    ``truth`` defaults to ``load_ground_truth(config)``.  Without ``index``
+    the index checkpoint at ``config.index_path`` is used when its count,
+    ids and content hash match the truth; a checkpoint that does not match,
+    or that this package cannot read (the JAX package's among them), is
+    rebuilt with a warning.  ``model`` defaults to ``config.model_path``,
+    read at the first use of stage 3."""
+
+    def __init__(self, config: Optional[Config] = None, truth: Optional[TitleSet] = None,
+                 model: Optional[GBTModel] = None, device="cuda", *,
+                 index: Optional[TruthIndex] = None, use_index_checkpoint: bool = True):
+        self.cfg = config = config or get_config()
         self.device = resolve_device(device)
-        self.truth = truth
-        self.index = build_truth_index(truth, config)
+        self.truth = truth = truth or load_ground_truth(config)
+        if index is None and use_index_checkpoint and os.path.exists(config.index_path):
+            index = self._checkpoint(config.index_path, truth)
+        self.index = index or build_truth_index(truth, config)
         self.scorer = JaccardScorer(self.index, config, self.device, truth)
         # exact-match lookup: duplicate transformed titles → last id wins
         self.reverse: Dict[str, int] = {
@@ -104,15 +126,53 @@ class Matcher:
         ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
         self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                  config, self.device)
-        self._word_counts = WordCounts(truth).matrix(truth.transformed)
+        self._word_counts: Optional[np.ndarray] = None
         self.set_model(model)
 
-    def set_model(self, model: GBTModel) -> None:
+    @staticmethod
+    def _checkpoint(path: str, truth: TitleSet) -> Optional[TruthIndex]:
+        """The checkpointed index at ``path`` if it holds this truth, else None."""
+        try:
+            loaded = TruthIndex.load(path)
+        except Exception as exc:  # stale, old-format or foreign checkpoint
+            LOGGER.warning("index checkpoint at %s unreadable (%s); rebuilding", path, exc)
+            return None
+        if (loaded.num_titles == len(truth) and np.array_equal(loaded.title_ids, truth.ids)
+                and loaded.content_hash == title_content_hash(truth.encoded, truth.lengths)):
+            LOGGER.info("loaded index checkpoint from %s", path)
+            return loaded
+        LOGGER.warning("index checkpoint at %s does not match the truth data; rebuilding", path)
+        return None
+
+    def set_model(self, model: Optional[GBTModel]) -> None:
         """Take another model for stage 3 (say, one just trained) over the
-        same truth database: only the model stage's engine is rebuilt."""
+        same truth database: only the model stage's engine is rebuilt, at
+        its next use.  ``None`` reads ``config.model_path`` then."""
         self.model = model
-        self.rerank = RerankEngine(self.truth.encoded, self.truth.lengths, self.truth_words,
-                                   self._word_counts, model, len(self.truth), self.cfg, self.device)
+        self._rerank: Optional[RerankEngine] = None
+
+    @property
+    def rerank(self) -> RerankEngine:
+        """The stage-3 engine, built at first use (with the model of
+        ``config.model_path`` where none was given)."""
+        if self._rerank is None:
+            if self.model is None:
+                self.model = GBTModel.load(self.cfg.model_path)
+            if self._word_counts is None:
+                self._word_counts = WordCounts(self.truth).matrix(self.truth.transformed)
+            self._rerank = RerankEngine(self.truth.encoded, self.truth.lengths, self.truth_words,
+                                        self._word_counts, self.model, len(self.truth), self.cfg,
+                                        self.device)
+        return self._rerank
+
+    def _reference_host_path(self, n_rows: int) -> bool:
+        """Whether the JAX package decides ``n_rows`` rows (one wave, past
+        the exact stage) in its host stages rather than its one-dispatch
+        path: a batch over one query block, or either path switched off."""
+        cfg = self.cfg
+        qb = (cfg.fold_query_block or cfg.query_block) if self.scorer.folded is not None \
+            else cfg.query_block
+        return cfg.serve_fused == "off" or cfg.cascade_impl == "host" or n_rows > qb
 
     # ------------------------------------------------------------- stages
 
@@ -162,6 +222,8 @@ class Matcher:
 
         t0 = time.time()
         _, cand = self.scorer.topk_device(queries, k=k, rows=rem)          # (R, k) i32
+        if not waves and self._reference_host_path(len(rem)):
+            self._raise_on_padding(cand, order)
         synchronize(dev)
         t_retr = time.time()
         res.stage_seconds["retrieval"] = t_retr - t0
@@ -286,6 +348,19 @@ class Matcher:
         res.stage_counts["model"] = hits
         res.stage_seconds["model"] = time.time() - t1
 
+    def _raise_on_padding(self, cand: torch.Tensor, order: np.ndarray) -> None:
+        """The reference's host stages index the truth arrays with numpy,
+        which raises on a padding candidate (a position past the truth
+        count, which window select returns over fewer titles than k windows
+        hold); raise its IndexError, for the first such position in the
+        rows' own order."""
+        nt = self.index.num_titles
+        flat = cand[torch.from_numpy(np.argsort(order)).to(cand.device)].reshape(-1)
+        bad = torch.nonzero(flat >= nt)
+        if bad.numel():
+            raise IndexError(f"index {int(flat[bad[0, 0]])} is out of bounds for axis 0 "
+                             f"with size {nt}")
+
     # -------------------------------------------------------------- entry
 
     def predict(self, queries: TitleSet, single: bool = False) -> PredictionResult:
@@ -322,3 +397,44 @@ class Matcher:
                     int((res.stage != STAGE_NONE).sum()), n, res.stage_counts["exact"],
                     res.stage_counts["fuzzy"], res.stage_counts["model"])
         return res
+
+
+def accuracy_report(actuals_path: str, output_path: str, delimiter: str = "|") -> dict:
+    """Counts of the predictions at ``output_path`` against the actuals
+    (``test_index`` and ``company_id`` columns): matched right or wrong,
+    marked not found right or wrong, and the custom error (a wrong match
+    weighs 5, a wrong not-found 1)."""
+    actual = read_csv(actuals_path, delimiter)
+    predictions = read_csv(output_path, delimiter)
+    actual_map = dict(zip(as_int64(actual["test_index"]).tolist(), actual["company_id"]))
+    pred_map = dict(zip(as_int64(predictions["test_index"]).tolist(), predictions["title_id"]))
+
+    cm_e = cm_ne = im_e = im_ne = 0
+    for key, actual_value in actual_map.items():
+        p = pred_map[key]
+        if p == -1:
+            if actual_value == p:
+                cm_ne += 1
+            else:
+                im_ne += 1
+        else:
+            if actual_value == p:
+                cm_e += 1
+            else:
+                im_e += 1
+    report = {
+        "correctly_matched": cm_e,
+        "incorrectly_matched": im_e,
+        "correctly_not_found": cm_ne,
+        "incorrectly_not_found": im_ne,
+        "custom_error": im_ne + im_e * 5,
+    }
+    LOGGER.info(
+        "\n\n    Correctly matched titles            %(correctly_matched)d\n"
+        "    Incorrectly matched titles          %(incorrectly_matched)d\n"
+        "    Correctly marked as not-found       %(correctly_not_found)d\n"
+        "    Incorrectly marked as not-found     %(incorrectly_not_found)d\n\n"
+        "    Custom Error                        %(custom_error)d\n",
+        report,
+    )
+    return report

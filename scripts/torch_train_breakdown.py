@@ -8,8 +8,8 @@ Builds the bench's synthetic world (500k titles, seed 7) and, on its first
 
 1. trains five times with ``quick_train_model`` (60 rounds) and prints
    each run's timings and how many trees are equal to the first run's
-   (``index_add_`` adds with atomics on the card, so f32 histogram sums may
-   round differently from run to run); once more with
+   (the histograms add in fixed point, so every tree should be); once
+   more with
    ``retrieval_window_select`` off, so the candidates are the full top-100
    (kernel D) and not one per window of 16 titles (kernel A), and twice
    with another ``seed`` (other sampled candidates, another evaluation
@@ -18,8 +18,10 @@ Builds the bench's synthetic world (500k titles, seed 7) and, on its first
 2. runs the feature matrix once more under ``torch.profiler`` and prints the
    device time beside the wall time and the top kernels;
 3. runs one 10-round boosting segment under the profiler, the same way, and
-   times the level histograms' ``index_add_`` (atomics) alone with CUDA
-   events, beside a sum in row order at the same keys (``index_put_`` with
+   times a level histogram alone with CUDA events three ways at the same
+   keys: in fixed point as training sums (int64 ``index_add_``, then the
+   conversion to f32), as f32 ``index_add_`` (atomics, whose order changes
+   the sums from run to run), and in row order (``index_put_`` with
    ``accumulate``: a stable sort, then each segment in order).
 
 Needs one CUDA card; prints the card's name and power limit first.
@@ -181,11 +183,15 @@ def main() -> int:
             end.synchronize()
             return start.elapsed_time(end) / 10
 
-        atomics = timed(lambda: gbt._segment_sum(key, src, n_seg))
+        gq, unit = gbt._quantize(g, N * F)
+        srcq = gq[:, None].expand(N, F).reshape(-1)
+        fixed = timed(lambda: gbt._segment_sum(key, srcq, unit, n_seg))
+        atomics = timed(lambda: torch.zeros(n_seg, device=dev).index_add_(0, key, src))
         ordered = timed(lambda: torch.zeros(n_seg, device=dev).index_put_((key,), src, accumulate=True))
         print(f"# level histogram of {N * F} keys into {n_nodes} node(s) x {F} x 256 bins: "
-              f"index_add_ (atomics) {atomics:.3f} ms; summed in row order (index_put_, "
-              f"accumulate) {ordered:.3f} ms", flush=True)
+              f"fixed point (int64 index_add_) {fixed:.3f} ms; f32 index_add_ (atomics) "
+              f"{atomics:.3f} ms; summed in row order (index_put_, accumulate) {ordered:.3f} ms",
+              flush=True)
     return 0
 
 

@@ -377,7 +377,8 @@ def test_build_tree_on_the_card_equals_the_cpu(cuda):
 def test_train_gbt_on_the_card_learns_as_the_cpu(cuda):
     """20 rounds on the card against the same on the CPU: AUCs within 1e-3
     and the last eval errors within 5 % of the eval rows' weight (the
-    card's histograms add with atomics and its sigmoid differs in the last
+    histograms are the CPU's bit for bit, but the card's f32 totals and
+    prefix sums add in another order and its sigmoid differs in the last
     bit, so trees may part ways where splits tie); the forest walk of one
     model gives the same probabilities on both devices to 1e-6."""
     from doppelspeller_tpu_torch.models import gbt
@@ -392,6 +393,30 @@ def test_train_gbt_on_the_card_learns_as_the_cpu(cuda):
     assert abs(a.history["final_eval_auc"] - c.history["final_eval_auc"]) < 1e-3
     assert abs(a.history["eval_error"][-1] - c.history["eval_error"][-1]) <= 0.05 * len(ye)
     np.testing.assert_allclose(a.predict(Xe, device=cuda), a.predict(Xe, device="cpu"), atol=1e-6)
+
+
+def test_train_gbt_on_the_card_repeats(cuda):
+    """Two trainings on the card give the same trees bit for bit: the
+    histograms add in fixed point, so the order of the atomics does not
+    reach them; the rows in another order give the same first tree."""
+    from doppelspeller_tpu_torch.models import gbt
+
+    X, y = _train_data(6000, 4)
+    Xe, ye = _train_data(1000, 5)
+    params = gbt.GBTParams(num_boost_round=30, early_stopping_rounds=30)
+    a = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, device=cuda)
+    b = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, device=cuda)
+    assert a.num_trees == b.num_trees == 30
+    for name in ("feat", "split_bin", "missing_left", "value", "is_leaf", "threshold"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+    bins = gbt.bin_features(X, gbt.compute_bin_edges(X))
+    g, h = gbt.margin_grad_hess(torch.zeros(len(y)), torch.from_numpy(y), 5.0)
+    perm = np.random.RandomState(6).permutation(len(y))
+    kw = dict(depth=5, lambda_=1.0, min_child_weight=1.0)
+    t1 = gbt.build_tree(*(torch.as_tensor(x).to(cuda) for x in (bins, g, h)), **kw)
+    t2 = gbt.build_tree(*(torch.as_tensor(x).to(cuda) for x in (bins[perm], g[perm], h[perm])), **kw)
+    for u, v in zip(t1[:5], t2[:5]):
+        assert torch.equal(u, v)
 
 
 def test_features_for_pairs_on_the_card_equals_the_cpu(cuda):

@@ -135,11 +135,13 @@ def test_plan_id_blocks_equal(small_world):
 
 
 def test_package_never_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|doppelspeller_tpu)\b", re.M)
-    offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|doppelspeller_tpu|bench)\b", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert offenders == []
-    code = ("import sys, doppelspeller_tpu_torch.pipeline, doppelspeller_tpu_torch.synthetic; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'doppelspeller_tpu')]; "
+    code = ("import sys, doppelspeller_tpu_torch.pipeline, doppelspeller_tpu_torch.synthetic, "
+            "doppelspeller_tpu_torch.cli; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'doppelspeller_tpu', 'bench')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
@@ -180,3 +182,143 @@ def test_entry_points_default_to_the_card(small_world, entry):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+
+
+# ------------------------------------------------------------- CSV loaders
+
+TRICKY_NAMES = [
+    "Coolblue B.V.", "", "NA", "N/A", "NULL", "None", "nan", "NaN", "#N/A", "<NA>", "n/a",
+    "null", '"quoted | with the delimiter"', '"doubled ""quotes"" inside"', '"two\nlines"',
+    "a\"quote in the middle", " leading and trailing spaces ", "Zoë Café & Co", "12345",
+]
+
+
+def _write(path, header, rows):
+    with open(path, "w", newline="") as f:
+        f.write(header + "\n" + "".join(r + "\n" for r in rows))
+
+
+def _loader_configs(tmp_path):
+    from doppelspeller_tpu.utils import io as jio
+    from doppelspeller_tpu_torch.utils import io as pio
+
+    return jio, pio, JConfig(data_path=str(tmp_path)), Config(data_path=str(tmp_path))
+
+
+def _assert_same_titleset(tj, tp):
+    assert tj.titles == tp.titles
+    assert tj.transformed == tp.transformed
+    np.testing.assert_array_equal(tj.ids, tp.ids)
+    np.testing.assert_array_equal(tj.encoded, tp.encoded)
+    np.testing.assert_array_equal(tj.lengths, tp.lengths)
+    assert (tj.labels is None) == (tp.labels is None)
+    if tp.labels is not None:
+        np.testing.assert_array_equal(tj.labels, tp.labels)
+        assert tp.labels.dtype == np.int64
+    assert tp.ids.dtype == np.int64
+
+
+@pytest.mark.parametrize("kind", ["ground_truth", "train_data", "test_data"])
+def test_csv_loaders_equal_jax(tmp_path, kind):
+    """Empty names and pandas' NA strings become the title "nan", quoted
+    fields follow pandas' quoting, blank lines are skipped, and \\r\\n
+    endings and a byte-order mark read as pandas reads them."""
+    jio, pio, jcfg, cfg = _loader_configs(tmp_path)
+    n = len(TRICKY_NAMES)
+    if kind == "ground_truth":
+        rows = [f"{i + 1}|{t}" for i, t in enumerate(TRICKY_NAMES)]
+        _write(cfg.ground_truth_path, "company_id|name", rows[:5] + [""] + rows[5:])
+    elif kind == "train_data":
+        rows = [f"{i}|{t}|{(i % 3) - 1}" for i, t in enumerate(TRICKY_NAMES)]
+        _write(cfg.train_path, "\ufefftrain_index|name|company_id", rows)
+    else:
+        rows = [f"{n - i}|{t}\r" for i, t in enumerate(TRICKY_NAMES)]
+        _write(cfg.test_path, "test_index|name\r", rows)
+    tj = getattr(jio, f"load_{kind}")(jcfg)
+    tp = getattr(pio, f"load_{kind}")(cfg)
+    _assert_same_titleset(tj, tp)
+    assert len(tp) == n and tp.titles.count("nan") == 11
+
+
+@pytest.mark.parametrize("name", [
+    ["12", "007", "-3"],            # an integer column: str of the int
+    ["12", "", "4"],                # integers beside a missing value: floats
+    ["1.5", "1e3", ".5", "5."],     # floats
+    ["inf", "-Infinity", "2"],
+    ["True", "false", "TRUE"],      # booleans
+    ["True", "", "False"],
+    ["1_000", "0x10", "3"],         # not numbers to pandas: strings
+    ["", "NA", "null"],             # nothing but missing values
+])
+def test_name_column_typed_as_pandas(tmp_path, name):
+    jio, pio, jcfg, cfg = _loader_configs(tmp_path)
+    _write(cfg.ground_truth_path, "company_id|name", [f"{i}|{t}" for i, t in enumerate(name)])
+    _assert_same_titleset(jio.load_ground_truth(jcfg), pio.load_ground_truth(cfg))
+
+
+@pytest.mark.parametrize("ids,error", [
+    (["1.0", "2.7", "-3.2"], None),         # floats truncate, as astype(np.int64)
+    (["1", "", "3"], "non-finite"),
+    (["1", "x", "3"], "invalid literal"),
+])
+def test_id_column_as_astype_int64(tmp_path, ids, error):
+    jio, pio, jcfg, cfg = _loader_configs(tmp_path)
+    _write(cfg.ground_truth_path, "company_id|name", [f"{i}|title {k}" for k, i in enumerate(ids)])
+    if error is None:
+        _assert_same_titleset(jio.load_ground_truth(jcfg), pio.load_ground_truth(cfg))
+        return
+    with pytest.raises(ValueError):
+        jio.load_ground_truth(jcfg)
+    with pytest.raises(ValueError, match=error):
+        pio.load_ground_truth(cfg)
+
+
+@pytest.mark.parametrize("kind,header", [
+    ("ground_truth", "id|name"), ("train_data", "train_index|name"), ("test_data", "index|name"),
+])
+def test_csv_loader_missing_column_raises_as_jax(tmp_path, kind, header):
+    jio, pio, jcfg, cfg = _loader_configs(tmp_path)
+    path = getattr(cfg, {"ground_truth": "ground_truth_path", "train_data": "train_path",
+                         "test_data": "test_path"}[kind])
+    _write(path, header, ["1|abc"])
+    with pytest.raises(ValueError) as ej:
+        getattr(jio, f"load_{kind}")(jcfg)
+    with pytest.raises(ValueError) as ep:
+        getattr(pio, f"load_{kind}")(cfg)
+    assert str(ep.value) == str(ej.value)
+
+
+def test_config_paths_and_singleton_equal(tmp_path, monkeypatch):
+    from doppelspeller_tpu_torch import config as pconfig
+
+    jc, pc = JConfig(data_path=str(tmp_path)), Config(data_path=str(tmp_path))
+    for name in ("ground_truth_path", "train_path", "test_path", "test_with_actuals_path",
+                 "final_output_path", "model_path", "index_path"):
+        assert getattr(jc, name) == getattr(pc, name), name
+    assert jc.path("x.csv") == pc.path("x.csv")
+    monkeypatch.setattr(pconfig, "_DEFAULT", None)
+    monkeypatch.setenv("PROJECT_DATA_PATH", str(tmp_path))
+    first = pconfig.get_config()
+    assert first is pconfig.get_config() and first.data_path == str(tmp_path)
+    pconfig.set_config(pc.with_(top_n_predicting=17))
+    assert pconfig.get_config().top_n_predicting == 17
+
+
+def test_index_checkpoint_round_trip_and_hash(small_world, tmp_path):
+    from doppelspeller_tpu.ops.ngram_index import title_content_hash as j_hash
+    from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, title_content_hash
+
+    cfg, truth, *_ = small_world
+    ip = build_truth_index(truth, cfg)
+    assert ip.content_hash == title_content_hash(truth.encoded, truth.lengths) \
+        == j_hash(truth.encoded, truth.lengths)
+    assert ip.packed_nbytes == 50653 * ip.padded_titles // 8
+    ip.save(str(tmp_path / "index.npz"))
+    back = TruthIndex.load(str(tmp_path / "index.npz"))
+    for name in ("idf", "df", "sums", "title_ids", "trigrams"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(ip, name))
+    assert (back.num_titles, back.padded_titles, back.max_idf, back.content_hash) == \
+        (ip.num_titles, ip.padded_titles, ip.max_idf, ip.content_hash)
+    np.savez(tmp_path / "other.npz", idf=ip.idf)
+    with pytest.raises(ValueError, match="not a doppelspeller_tpu_torch.TruthIndex"):
+        TruthIndex.load(str(tmp_path / "other.npz"))

@@ -208,6 +208,54 @@ def test_build_tree_leaves_early_and_keeps_min_child_weight():
     assert op[4][: 2 ** 5 - 1].any()                          # leaves above the last level
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_tree_ignores_the_order_of_rows(seed):
+    """The histograms add in fixed point, so the same rows in another order
+    give the same sums bit for bit, hence the same tree, as the card's
+    atomics need.  f32 ``index_add_`` of the same values (the histograms
+    before fixed point) rounds in the order of the rows and differs."""
+    rng = np.random.RandomState(seed)
+    n, f = 3000, 6
+    X = rng.randn(n, f).astype(np.float32)
+    X[rng.rand(n, f) < 0.1] = np.nan
+    bins = pgbt.bin_features(X, pgbt.compute_bin_edges(X))
+    g = (rng.randn(n) + np.where(np.nan_to_num(X[:, 0]) > 0, 1.0, -1.0)).astype(np.float32)
+    h = rng.rand(n).astype(np.float32)
+    perm = rng.permutation(n)
+    kw = dict(depth=5, lambda_=1.0, min_child_weight=1.0)
+    a = pgbt.build_tree(*map(torch.from_numpy, (bins, g, h)), **kw)
+    b = pgbt.build_tree(*map(torch.from_numpy, (bins[perm], g[perm], h[perm])), **kw)
+    for name, x, y in zip(("feat", "split_bin", "missing_left", "value", "is_leaf"), a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=name)
+    np.testing.assert_array_equal(a[5].numpy()[perm], b[5].numpy())
+    assert (a[0].numpy() >= 0).sum() >= 16                            # it really split
+
+    def level0(rows):
+        key = torch.from_numpy((bins[rows].astype(np.int64) + np.arange(f) * pgbt.NB).reshape(-1))
+        v = torch.from_numpy(np.repeat(g[rows], f))
+        fixed = pgbt._segment_sum(key, *pgbt._quantize(v, n * f), f * pgbt.NB)
+        return fixed, torch.zeros(f * pgbt.NB).index_add_(0, key, v)
+
+    (fa, f32a), (fb, f32b) = level0(np.arange(n)), level0(perm)
+    assert torch.equal(fa, fb)
+    assert not torch.equal(f32a, f32b)
+    np.testing.assert_allclose(fa.numpy(), f32a.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_fixed_point_shift_and_its_limit():
+    def shift(v, n):
+        return int(pgbt.fixed_point_shift(torch.tensor(v), n))
+
+    assert shift(1.0, 1) == 61                                         # 2^0 · 2^61 < 2^62
+    assert shift(0.75, 4) == 60                                        # 3 · 2^60 < 2^62
+    assert shift(5.0, 4_383_984) == 37                                 # the smoke's level keys
+    assert shift(0.0, 10) == 62 and shift(1e-30, 10) == 100
+    X, y = _gbt_data(40, 0)
+    with pytest.raises(ValueError, match="fractional bits"):
+        pgbt.train_gbt(X, y, X, y, pgbt.GBTParams(num_boost_round=1, beta=2.0 ** 40),
+                       verbose_every=0, device="cpu")
+
+
 # ---------------------------------------------------------------- boosting
 
 def _gbt_data(n, seed):
@@ -290,7 +338,10 @@ def test_train_gbt_ten_rounds_matches_jax():
     mp = pgbt.train_gbt(X, y, Xe, ye, pgbt.GBTParams(**kw), verbose_every=0, device="cpu")
     # 8 of the 630 nodes hold tied splits (level 4 of trees 1, 2 and 4 to 7,
     # nodes of about 60 rows): the port adds its prefix sums with
-    # ``torch.cumsum``, the reference in XLA's blocks
+    # ``torch.cumsum``, the reference in XLA's blocks.  The port's fixed-point
+    # histograms (each bin's sum rounded once, the reference's at every add)
+    # left the count at 8: the bins' sums of these rows round alike either
+    # way, and the ties part in the prefix sums over them
     assert _assert_same_model(mj, mp, max_tied=8) == 8
     assert mp.num_trees == 10 and mp.threshold.dtype == np.float32
     # the same forest gives the same probabilities in both packages
@@ -466,10 +517,39 @@ def test_port_trained_model_predicts_as_the_trained_fixture(world, port_world, t
     compare_predictions(rj, rpj)
 
 
-def test_train_model_needs_the_title_sets(port_world):
-    cfg = port_world[0]
-    with pytest.raises(ValueError, match="train and truth"):
+def test_train_model_needs_the_title_sets(port_world, tmp_path, monkeypatch):
+    """Without ``train`` and ``truth`` both packages read them from the
+    config's CSVs: missing files raise, and written ones load as the JAX
+    package's loaders read them."""
+    from doppelspeller_tpu.config import Config as JConfig
+    from doppelspeller_tpu.utils import io as jio
+
+    cfg, truth, train, _test = port_world
+    cfg = cfg.with_(data_path=str(tmp_path))
+    jcfg = JConfig(data_path=str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        jtrainer.train_model(jcfg)
+    with pytest.raises(FileNotFoundError):
         ptrainer.train_model(cfg, device="cpu")
+    with open(cfg.ground_truth_path, "w") as f:
+        f.write("company_id|name\n" + "".join(f"{i}|{t}\n" for i, t in zip(truth.ids, truth.titles)))
+    with open(cfg.train_path, "w") as f:
+        f.write("train_index|name|company_id\n" + "".join(
+            f"{i}|{t}|{label}\n" for i, t, label in zip(train.ids, train.titles, train.labels)))
+    seen = {}
+
+    def stop(train_set, truth_set, *args):
+        seen.update(train=train_set, truth=truth_set)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ptrainer, "assemble_training_pairs", stop)
+    with pytest.raises(KeyboardInterrupt):
+        ptrainer.train_model(cfg, device="cpu")
+    for got, ref in ((seen["train"], jio.load_train_data(jcfg)), (seen["truth"], jio.load_ground_truth(jcfg))):
+        assert got.titles == ref.titles and got.transformed == ref.transformed
+        np.testing.assert_array_equal(got.ids, ref.ids)
+        np.testing.assert_array_equal(got.encoded, ref.encoded)
+    np.testing.assert_array_equal(seen["train"].labels, train.labels)
 
 
 def test_quick_train_model_draws_as_the_bench(monkeypatch):
