@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py time-predicts [reps]   # phases 10 and 11's predicts alone
 
 Phases, each printing its seconds; any failure exits non-zero:
 
@@ -71,6 +72,22 @@ Phases, each printing its seconds; any failure exits non-zero:
     with A launching, every launch gathering, and C not at all; then one
     more predict under ``torch.profiler``: the top kernels by device time
     and kernel A's share.
+    After each of these two main paths, the one-dispatch path
+    (``ops/serve_fused.py``) on the same resident Matcher (default config,
+    128-query blocks): one request replayed as a CUDA graph against the
+    same request run op by op (stats and candidates equal bit for bit; the
+    op-by-op run's calls of A and B against their plain versions); 200
+    single titles that the exact stage does not match through
+    ``predict(single=True)``, once to capture every shape they need and
+    once timed (every request a replay, A and B launched by the replays),
+    their p50 and p99 with the card's name and power limit; the first 50
+    through ``serve_fused="off"`` (p50, p99), whose results must equal the
+    fused ones row for row; each key's capture seconds, one replay's device
+    time by CUDA events and its device operations by the profiler (both
+    engines' profiler passes after the exact path's timed predict: the
+    profiler's first session slows every later predict).  On the
+    folded engine also the serve loop's 8-query blocks: 50 single titles
+    and a batch of 8, equal to the 128-query blocks' results.
 12. oracle anchor: the bench's exact-config oracle (f32, full matrix and
     exact top-k, model depth 0) on every 2nd query of the 500k world, the
     first 6,000; kernel D must launch and C and A must not, and the folded
@@ -99,13 +116,17 @@ Phases, each printing its seconds; any failure exits non-zero:
     truth title must answer its id.  ``serve --profile latency`` answers a
     bare title, an ``{"id", "title"}`` request, two batches of 8 (with the
     single titles, kernel A at unions of 128, 256 and 512 rows) and a
-    malformed line as an in-process Matcher under the same overrides does,
-    then 200 single titles, whose p50 and p99 ``latency_ms`` are printed
-    with the card's name and power limit, and a single title's mean stage
-    seconds.  A and B must launch in
+    malformed line as an in-process Matcher under the same overrides does
+    (and as one with ``serve_fused="off"``, predictions to 1e-6), then 200
+    single titles, whose p50 and p99 ``latency_ms`` are printed with the
+    card's name and power limit, and a single title's mean stage seconds
+    (the one-dispatch path charges all of a request to retrieval).  Serve's
+    requests take the one-dispatch path, so A and B launch there through
+    graph replays, which must happen.  A and B must launch in
     ``train-model`` and ``generate-predictions``, A in ``serve``, and C, D
     and E nowhere; every call of A and B (A at serve's unions of 128-512
-    rows too) is held against the plain version as in the train phase.
+    rows too) is held against the plain version as in the train phase (in
+    ``serve``, the calls of the run op by op before each capture).
 
 The line before the last is a JSON object with every kernel's route,
 source, launches in the path that carries it, error, times, bound (the
@@ -445,14 +466,20 @@ class Spy:
     """Stands in for the function ``name`` of ``module`` and keeps every
     call's (args, kwargs, result), by reference.  Attributes go through to
     the function, so a wrapper that counts its launches on itself
-    (``fn.launches += 1``) goes on counting there."""
+    (``fn.launches += 1``) goes on counting there.  A call made while a CUDA
+    graph is captured launches nothing and is not kept: the graph's memory
+    pool hands its tensors to other graphs' replays (the warm-up run before
+    each capture makes the same call op by op, and that one is kept)."""
 
     def __init__(self, module, name):
         self.__dict__.update(module=module, name=name, real=getattr(module, name), calls=[])
 
     def __call__(self, *args, **kwargs):
+        import torch
+
         out = self.real(*args, **kwargs)
-        self.calls.append((args, kwargs, out))
+        if not torch.cuda.is_current_stream_capturing():
+            self.calls.append((args, kwargs, out))
         return out
 
     def __getattr__(self, key):
@@ -719,19 +746,21 @@ def check_calls(torch, jk, fk, calls_a, calls_b, where):
     unions, n_untied, largest = {}, 0, None
     for (packed, w, sums, maxint, nt), kw, (wk, ak) in calls_a:
         kw = dict(kw)
-        ids, dt = kw.pop("union_ids"), kw.pop("score_dtype")
-        rows, wr = jk.gather_rows_plain(packed, ids), jk.round_weights(w, dt)
+        ids, dt = kw.pop("union_ids", None), kw.pop("score_dtype")
+        rows = packed if ids is None else jk.gather_rows_plain(packed, ids)
+        wr = jk.round_weights(w, dt)
         wp, ap = jk.score_window_select_plain(rows, wr, sums, maxint, nt, **kw)
         torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-7)
         untied = jk.untied_windows(rows, wr, sums, maxint, nt, rtol=1e-5, **kw)
+        U = rows.shape[0]
         if not torch.equal(ak[untied], ap[untied]):
             raise AssertionError(f"kernel A's window titles differed from the plain version "
-                                 f"{where} at U={ids.shape[0]}")
+                                 f"{where} at U={U}")
         n_untied += int(untied.sum())
-        unions[ids.shape[0]] = unions.get(ids.shape[0], 0) + 1
-        if largest is None or ids.shape[0] > largest["ids"].shape[0]:
+        unions[U] = unions.get(U, 0) + 1
+        if largest is None or U > largest["U"]:
             largest = dict(rows=packed, ids=ids, w=w, sums=sums, maxint=maxint, nt=nt,
-                           folds=kw["folds"])
+                           folds=kw["folds"], U=U)
     print(f"# {where}: kernel B exactly equal to its plain version on all {len(calls_b)} calls "
           f"((TL, WL): {sorted(shapes_b)}); kernel A within rtol 1e-5 of the plain gather and "
           f"scoring on all {len(calls_a)} calls (U: calls {json.dumps(dict(sorted(unions.items())))}), "
@@ -939,6 +968,155 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
     if missing:
         raise AssertionError(f"kernels {missing} were not launched on the {label} path: {launches}")
     return matcher, res, launches
+
+
+SERVE_SINGLES, SERVE_OFF, SERVE_QB8 = 200, 50, 50
+
+
+def bits_equal(a, b):
+    """Two host arrays equal bit for bit (NaNs and signed zeros too)."""
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def same_results(r1, r2, tol):
+    """Match ids, titles and stages equal, predictions within ``tol``."""
+    return (np.array_equal(r1.match_title_id, r2.match_title_id) and np.array_equal(r1.stage, r2.stage)
+            and r1.match_transformed == r2.match_transformed
+            and float(np.abs(r1.prediction - r2.prediction).max(initial=0.0)) <= tol)
+
+
+def replay_against_eager(torch, jk, fk, fs, queries, label):
+    """One request through the graph (captured here if its key is new) and
+    the same request through ``fused_cascade`` op by op: stats and
+    candidates equal bit for bit.  The eager run's calls of A and B are
+    held against their plain versions (``check_calls``)."""
+    from doppelspeller_tpu_torch.ops import features, fold
+
+    rows = np.arange(len(queries))
+    got = fs.dispatch(queries, rows)
+    with Spy(jk, "score_window_select") as spy_a, Spy(fold, "score_window_select") as spy_f, \
+            Spy(features, "window_best") as spy_b:
+        ref = fs.dispatch(queries, rows, eager=True)
+    torch.cuda.synchronize()
+    if not (bits_equal(got[1], ref[1]) and bits_equal(got[2], ref[2])):
+        raise AssertionError(f"serve_fused {label}: the replay differs from eager fused_cascade")
+    check_calls(torch, jk, fk, spy_a.calls + spy_f.calls, spy_b.calls, f"serve_fused {label} eager")
+
+
+def replay_ms(fs, queries):
+    """Milliseconds of one replay of a request whose graph exists, by CUDA
+    events (median of 20)."""
+    _, key, _ = fs.request(queries, np.arange(len(queries)))
+    return cuda_ms(fs._graphs[key].graph.replay, reps=20, calls=1)
+
+
+def profile_replay(torch, fs, queries, label, stats):
+    """The device operations the profiler sees in one replay of a request
+    whose graph exists and in the same request run op by op, into
+    ``stats``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = np.arange(len(queries))
+    counts = []
+    for eager in (False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fs.dispatch(queries, rows, eager=eager)
+            torch.cuda.synchronize()
+        counts.append(sum(ev.count for ev in prof.key_averages()
+                          if str(getattr(ev, "device_type", "")).endswith("CUDA")))
+    stats["replay_ops"], stats["eager_ops"] = counts
+    print(f"# serve_fused {label}: {counts[0]} device operations (kernels, copies, fills) in one "
+          f"replay by the profiler, {counts[1]} in the same request run op by op", flush=True)
+
+
+def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
+    """The one-dispatch path on a resident Matcher (see the module docstring,
+    phases 10 and 11): single titles that the exact stage does not match,
+    through ``predict(single=True)`` as a caller sends them.  Returns
+    (stats, the 128-query engine and a request whose graph it holds) for
+    ``profile_replay``."""
+    from doppelspeller_tpu_torch import cli
+    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+    from doppelspeller_tpu_torch.utils.io import TitleSet, single_title_set
+
+    cfg = matcher.cfg
+    titles = [t for t, tr in zip(queries.titles, queries.transformed) if tr not in matcher.reverse]
+    titles = titles[:SERVE_SINGLES]
+    matcher._fused = None
+    fs = matcher._fused_engine()
+    replay_against_eager(torch, jk, fk, fs, single_title_set(titles[0], cfg), label)
+
+    def singles(ts, c):
+        out, lat = [], []
+        for t in ts:
+            t0 = time.perf_counter()
+            out.append(matcher.predict(single_title_set(t, c), single=True))
+            lat.append(1e3 * (time.perf_counter() - t0))
+        return out, np.array(lat)
+
+    t = time.time()
+    singles(titles, cfg)                      # captures every key these titles need
+    warm_s = time.time() - t
+    reset_counts(counters)
+    fused, lat = singles(titles, cfg)
+    launches = read_counts(counters)
+    if launches["captures"] or launches["replays"] != len(titles) or launches["A"] < len(titles) \
+            or launches["B"] == 0:
+        raise AssertionError(f"serve_fused {label}: {len(titles)} requests made {launches}")
+    matcher.cfg = cfg.with_(serve_fused="off")
+    try:
+        off, lat_off = singles(titles[:SERVE_OFF], matcher.cfg)
+    finally:
+        matcher.cfg = cfg
+    n_same = sum(same_results(a, b, 1e-6) for a, b in zip(fused, off))
+    stats = {"requests": len(titles), "card": smi, "qb": fs.qb,
+             "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+             "off_p50_ms": float(np.percentile(lat_off, 50)),
+             "off_p99_ms": float(np.percentile(lat_off, 99)), "launches": launches,
+             "first_pass_seconds": warm_s,
+             "capture_seconds": {str(k): v for k, v in fs.capture_seconds.items()},
+             "off_equal": n_same}
+    probe = single_title_set(titles[0], cfg)
+    stats["replay_ms"] = replay_ms(fs, probe)
+    print(f"# serve_fused {label}: {len(titles)} single titles (none an exact match) through "
+          f"predict(single=True), qb={fs.qb}, on {smi}: p50 {stats['p50_ms']:.3f} ms, p99 "
+          f"{stats['p99_ms']:.3f} ms (host clock around predict, graphs captured in a first pass of "
+          f"{warm_s:.3f} s); serve_fused='off' on the first {SERVE_OFF}: p50 "
+          f"{stats['off_p50_ms']:.3f} ms, p99 {stats['off_p99_ms']:.3f} ms; results equal on "
+          f"{n_same}/{SERVE_OFF} (ids, titles, stages; predictions to 1e-6)", flush=True)
+    print(f"# serve_fused {label}: launches {json.dumps(launches)}; one replay {stats['replay_ms']:.3f} "
+          f"ms by CUDA events (median of 20); captures (key: s) "
+          f"{json.dumps({k: round(v, 3) for k, v in stats['capture_seconds'].items()})}", flush=True)
+    if n_same != SERVE_OFF:
+        raise AssertionError(f"serve_fused {label}: the fused path and 'off' differ on "
+                             f"{SERVE_OFF - n_same} of {SERVE_OFF} titles")
+    if fs.mode == "folded":
+        # the serve loop's 8-query blocks on the folded engine
+        matcher.cfg, matcher._fused = cfg.with_(**cli.LATENCY_PROFILE), None
+        try:
+            fs8 = matcher._fused_engine()
+            replay_against_eager(torch, jk, fk, fs8, single_title_set(titles[1], matcher.cfg),
+                                 f"{label} qb={fs8.qb}")
+            singles(titles[:SERVE_QB8], matcher.cfg)
+            few, lat8 = singles(titles[:SERVE_QB8], matcher.cfg)
+            batch = TitleSet.from_titles(titles[:8], ids=np.arange(8), config=matcher.cfg)
+            b8 = matcher.predict(batch)
+        finally:
+            matcher.cfg, matcher._fused = cfg, None
+        b128 = matcher.predict(TitleSet.from_titles(titles[:8], ids=np.arange(8), config=cfg))
+        n8 = sum(same_results(a, b, 1e-6) for a, b in zip(few, fused))
+        stats["qb8"] = {"p50_ms": float(np.percentile(lat8, 50)),
+                        "p99_ms": float(np.percentile(lat8, 99)), "equal": n8,
+                        "batch8_equal": same_results(b8, b128, 1e-6)}
+        print(f"# serve_fused {label} at qb={fs8.qb} (the latency profile's blocks): "
+              f"{SERVE_QB8} single titles p50 {stats['qb8']['p50_ms']:.3f} ms, p99 "
+              f"{stats['qb8']['p99_ms']:.3f} ms; equal to qb={fs.qb} on {n8}/{SERVE_QB8}; a batch "
+              f"of 8 equal: {stats['qb8']['batch8_equal']}", flush=True)
+        if n8 != SERVE_QB8 or not stats["qb8"]["batch8_equal"]:
+            raise AssertionError(f"serve_fused {label}: 8-query blocks differ from {fs.qb}-query ones")
+    matcher._fused = None
+    return stats, (fs, probe)
 
 
 # the reference example set's size (30,000 truth titles, 10,000 train and
@@ -1181,21 +1359,39 @@ def run_cli_path(torch, counters, smi):
             out, err, ls = verb(["serve", "--profile", "latency"],
                                 "\n".join(requests + timed) + "\n")
             replies = [json.loads(line) for line in out.splitlines()]
-            expect = [m_lat.predict(single_title_set(test_titles[first + j], lat_cfg),
-                                    single=True).single_result() for j in (0, 1)]
-            expect[0]["title"] = test_titles[first]
-            expect[1].update(test_index=7, title=test_titles[first + 1])
-            for b in batches:
-                res = m_lat.predict(TitleSet.from_titles(b, ids=np.arange(8), config=lat_cfg))
-                expect.append({"results": [
-                    {"title": b[j], "transformed_title": res.transformed[j],
-                     "match_title_id": int(res.match_title_id[j]),
-                     "match_transformed_title": res.match_transformed[j],
-                     "prediction": float(res.prediction[j])} for j in range(8)]})
+            def replies_of(m):
+                c = m.cfg
+                out = [m.predict(single_title_set(test_titles[first + j], c),
+                                 single=True).single_result() for j in (0, 1)]
+                out[0]["title"] = test_titles[first]
+                out[1].update(test_index=7, title=test_titles[first + 1])
+                for b in batches:
+                    res = m.predict(TitleSet.from_titles(b, ids=np.arange(8), config=c))
+                    out.append({"results": [
+                        {"title": b[j], "transformed_title": res.transformed[j],
+                         "match_title_id": int(res.match_title_id[j]),
+                         "match_transformed_title": res.match_transformed[j],
+                         "prediction": float(res.prediction[j])} for j in range(8)]})
+                return out
+
+            def close(a, b):
+                """Replies equal, predictions within 1e-6."""
+                if isinstance(a, dict):
+                    return a.keys() == b.keys() and all(
+                        abs(a[k] - b[k]) <= 1e-6 if k == "prediction" else close(a[k], b[k]) for k in a)
+                if isinstance(a, list):
+                    return len(a) == len(b) and all(close(x, y) for x, y in zip(a, b))
+                return a == b
+
+            expect = replies_of(m_lat)
+            # the same requests through the staged path
+            expect_off = replies_of(Matcher(lat_cfg.with_(serve_fused="off"), device="cuda"))
             n_req = len(requests)
             got = [{k: v for k, v in r.items() if k != "latency_ms"} for r in replies[: n_req - 1]]
             if got != expect or "error" not in replies[n_req - 1] or len(replies) != n_req + SERVE_TIMED:
                 raise AssertionError(f"serve's replies differ from the in-process Matcher: {got} vs {expect}")
+            if not close(got, expect_off):
+                raise AssertionError(f"serve's replies differ from serve_fused='off': {got} vs {expect_off}")
             if not {128, 256, 512} <= set(stats["unions"]["serve"]):
                 raise AssertionError(f"serve's calls of A missed a union of 128-512 rows: "
                                      f"{stats['unions']['serve']}")
@@ -1208,18 +1404,57 @@ def run_cli_path(torch, counters, smi):
             stats["serve"] = {"p50_ms": p50, "p99_ms": p99, "requests": SERVE_TIMED, "card": smi,
                               "ready": err.strip(), "stage_ms_mean_of_50": split}
             print(f"# cli serve --profile latency: {err.strip()}; {n_req - 1} scripted replies "
-                  f"equal the in-process Matcher's, the malformed line answered "
+                  f"equal the in-process Matcher's (and serve_fused='off''s, predictions to 1e-6), "
+                  f"the malformed line answered "
                   f"{replies[n_req - 1]}; {SERVE_TIMED} single titles after warm-up: p50 {p50:.3f} ms, "
                   f"p99 {p99:.3f} ms (latency_ms of the replies, host clock around predict) on {smi}; "
-                  f"a single title's stage_seconds in ms, mean of 50: "
+                  f"a single title's stage_seconds in ms, mean of 50 (the one-dispatch path charges "
+                  f"a request's whole time to retrieval): "
                   f"{json.dumps({k: round(v, 3) for k, v in split.items()})}", flush=True)
-            if ls["A"] == 0:
-                raise AssertionError(f"serve did not launch kernel A: {ls}")
+            if ls["A"] == 0 or ls["replays"] == 0:
+                raise AssertionError(f"serve did not launch kernel A through graph replays: {ls}")
     finally:
         pkg_log.removeHandler(records)
         pkg_log.propagate = True
         pkg_log.setLevel(logging.NOTSET)
     return stats
+
+
+def time_predicts(torch, reps):
+    """``python3 chip_smoke.py time-predicts [reps]``: the two 16,384-query
+    main paths alone (folded 500k, exact 150k; default config, the
+    committed model), one untimed predict and ``reps`` timed ones each, no
+    profiler in the process; every rep's seconds and stage seconds, then
+    the medians as one JSON line.  It times the package beside this file,
+    so a copy of it placed in another checkout times that one."""
+    from doppelspeller_tpu_torch.config import Config
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+
+    model = GBTModel.load(MODEL)
+    out = {}
+    for label, n_titles in (("folded", N_TITLES), ("exact", N_TITLES_EXACT)):
+        cfg, truth, queries, actual = make_synthetic_world(
+            n_titles, N_QUERIES, seed=SEED, config=Config(data_path=os.path.join(ROOT, "data")))
+        matcher = Matcher(cfg, truth, model, device="cuda")
+        matcher.predict(queries)
+        secs = []
+        for r in range(reps):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = matcher.predict(queries)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t)
+            print(f"# {label} rep {r}: {secs[-1]:.3f} s, stage_seconds "
+                  f"{json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})}", flush=True)
+        med = statistics.median(secs)
+        out[label] = {"median_s": med, "q_per_s": N_QUERIES / med, "seconds": secs,
+                      "accuracy": float((res.match_title_id == actual).mean())}
+        del matcher
+        torch.cuda.empty_cache()
+    print(json.dumps({"checkout": ROOT, "predicts": out}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1237,6 +1472,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["time-predicts"]:
+        return time_predicts(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 5)
     from doppelspeller_tpu_torch import _build
     from doppelspeller_tpu_torch.ops import features_kernels as fk
     from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
@@ -1284,6 +1521,11 @@ def main() -> int:
                 (("A", jk.score_window_select), ("B", fk.window_best), ("C", jk.gather_rows),
                  ("D", jk.score_full), ("E", jk.jaccard_topk_v1))}
     counters["A gathering"] = (jk.score_window_select, "gathered")
+    # CUDA graphs of the one-dispatch path, captured and replayed
+    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+
+    counters["captures"] = (FusedServe, "captures")
+    counters["replays"] = (FusedServe, "replays")
 
     # ---- small worlds: card vs the plain CPU path ----
     t = time.time()
@@ -1329,6 +1571,11 @@ def main() -> int:
     kb["slab"] = check_kernel_b_on(torch, fk, largest, "on the folded predict's largest slab")
     del slab, largest
     phase("kernel_b_slab", t)
+    t = time.time()
+    serve, probes = {}, {}
+    serve["folded"], probes["folded"] = serve_fused_path(torch, jk, fk, folded, queries, counters, smi,
+                                                         "folded 500k")
+    phase("serve_fused_folded", t)
 
     # ---- the folded path once more, with the model trained above ----
     t = time.time()
@@ -1357,6 +1604,16 @@ def main() -> int:
                              f"gathering in every launch and no launch of C: {lx}")
     unions = dict(sorted(exact.scorer.exact.union_sizes.items()))
     print(f"# exact union buckets in the timed predict (U: blocks): {json.dumps(unions)}", flush=True)
+    t = time.time()
+    serve["exact"], probes["exact"] = serve_fused_path(torch, jk, fk, exact, queries_x, counters, smi,
+                                                       "exact 150k")
+    # the profiler's first session sets up CUPTI, and every launch-bound
+    # predict after it runs slower: no profiler runs before the exact main
+    # path's timed predict
+    for name, (fs, probe) in probes.items():
+        profile_replay(torch, fs, probe, name, serve[name])
+    del probes, fs
+    phase("serve_fused_exact", t)
     t = time.time()
     profile_predict(torch, exact, queries_x, "exact", ("A", "score_window_kernel"))
     phase("exact_profile", t)
@@ -1453,13 +1710,13 @@ def main() -> int:
               "kernel C's function (jaccard_pallas.py:29); the training path launched it "
               f"{train['launches']['A']} times, every one gathering", la, ka, hgmma=hgmma["A"],
               launches_by_path={"folded": la["A"], "exact": lx["A"], "train": train["launches"]["A"],
-                                "cli": cli_a},
+                                "cli": cli_a, "serve_fused": {k: v["launches"]["A"] for k, v in serve.items()}},
               **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
               f"folded main path (500k); exact main path (150k) launched it {lx['B']} times, the "
               f"training path {train['launches']['B']} times", la, kb,
               launches_by_path={"folded": la["B"], "exact": lx["B"], "train": train["launches"]["B"],
-                                "cli": cli_b},
+                                "cli": cli_b, "serve_fused": {k: v["launches"]["B"] for k, v in serve.items()}},
               **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
@@ -1488,6 +1745,7 @@ def main() -> int:
           f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)
     print(f"# train {json.dumps(train)}", flush=True)
     print(f"# cli {json.dumps(cli_stats)}", flush=True)
+    print(f"# serve_fused {json.dumps(serve)}", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -150,7 +150,9 @@ def serve(args) -> None:
 
     One JSON response per line.  A single title returns its best candidate
     whatever its probability; a batch takes the full decision (threshold,
-    −1 for not found)."""
+    −1 for not found).  Requests of at most one query block take the
+    one-dispatch path: on the card a CUDA graph per static shape, captured
+    at the shape's first request and replayed after."""
     import numpy as np
 
     from doppelspeller_tpu_torch.config import get_config
@@ -164,6 +166,8 @@ def serve(args) -> None:
     t0 = time.time()
     matcher = Matcher(cfg, device=args.device)
     if args.warmup:
+        # captures the graphs of the first shapes: short and long single
+        # titles and a small batch
         matcher.predict(single_title_set("wrmup exampl compani", cfg), single=True)
         matcher.predict(single_title_set(
             "wrmup exampl compani with a much longer title form", cfg), single=True)

@@ -3,13 +3,14 @@
 Field-for-field the JAX package's ``Config`` (same names, same defaults, same
 validation), so a configuration written for one package runs the other.  The
 port reads the fields on its path (retrieval, fuzzy, model stage, the cascade
-knobs).  Fields that only shape the TPU programs are kept so configurations
-stay interchangeable, and the port ignores them:
+knobs, ``serve_fused`` and ``fuzzy_tile_cap``).  Fields that only shape the
+TPU programs are kept so configurations stay interchangeable, and the port
+ignores them:
 
 ``window_impl``, ``retrieval_impl``, ``index_build_impl``,
 ``topk_recall_target``, ``fold_recall_target`` (the port's top-k is exact),
 ``dispatch_blocks``, ``pallas_union_chunk``, ``pair_block``,
-``rerank_chunk_cap``, ``mesh_axis``, ``serve_fused``.
+``rerank_chunk_cap``, ``mesh_axis``.
 """
 
 from __future__ import annotations
@@ -119,7 +120,8 @@ class Config:
     model_depth_initial: int = 32
     model_widen_threshold: float = 0.3
     model_trust_threshold: float = 0.995
-    # nonzero caps the fuzzy tile and needs the host redo, not ported yet
+    # nonzero caps the device fuzzy tile at the widest length bucket within
+    # it; rows with a considered pair past the tile go to the host stage
     fuzzy_tile_cap: int = 0
     rerank_chunk_cap: int = 512
     length_buckets: Tuple[int, ...] = (32, 64, 128, 256)
@@ -127,6 +129,8 @@ class Config:
     # "device": adaptive-depth waves A/B at every size; "host": every
     # candidate scored; "auto": waves at >= 2,048 rows past the exact stage
     cascade_impl: str = "auto"
+    # "auto": a batch of at most one query block takes the one-dispatch path
+    # (a CUDA graph on the card); "off": the staged path
     serve_fused: str = "auto"
 
     def __post_init__(self):

@@ -445,7 +445,7 @@ def predict_forest_margin(X: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor
         al = torch.gather(alive_b, 2, node[..., None])[..., 0]
         node = torch.where(al, 2 * node + 2 - gl.to(torch.int64), node)
     margin = torch.gather(value[None].expand(B, T, n_heap), 2, node[..., None])[..., 0]
-    base = torch.tensor(base_margin, dtype=torch.float32, device=X.device)
+    base = torch.full((), base_margin, dtype=torch.float32, device=X.device)
     return base + margin.sum(dim=1)
 
 

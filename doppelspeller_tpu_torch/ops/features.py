@@ -180,7 +180,7 @@ def features_kernel(
 
     # ---- word IDF features ----
     nan = torch.full((B, W), float("nan"), device=dev)
-    n_t = torch.tensor(n_truth, dtype=torch.float32, device=dev)
+    n_t = torch.full((), n_truth, dtype=torch.float32, device=dev)
     idf = torch.where(valid_word, torch.log(n_t / torch.clamp(word_counts, min=1.0)), nan)
     idf_max = _nanmax(idf, dim=1)
     ranks = 1.0 + (idf_max - idf) / n_words_t[:, None].to(torch.float32)

@@ -25,38 +25,42 @@ WL_MAX = 32
 
 def window_best_plain(word_chars: torch.Tensor, word_len: torch.Tensor,
                       q_wo: torch.Tensor, q_wo_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel B, vectorized over (pair, word, p)."""
+    """Plain PyTorch version of kernel B, vectorized over (word, p) for the
+    word slots that hold a word; an empty slot has no valid window (ratio
+    −1 at p = 0)."""
     B, W, WL = word_chars.shape
     TL = q_wo.shape[1]
     dev = q_wo.device
-    wlen = torch.clamp(word_len.to(torch.int64), max=WL_MAX)            # (B, W)
-    qwol = q_wo_len.to(torch.int64)                                      # (B,)
-    a = torch.arange(TL, device=dev)
-    text = q_wo.to(torch.int64)
-    text_ok = (a[None, :] < qwol[:, None]) & (text > 0)                  # (B, TL)
-    # M[b, w, a]: bit i set where word char i equals text char a; padded
-    # by WL zero columns so window p reads columns p .. p + WL - 1
-    M = torch.zeros((B, W, TL + WL), dtype=torch.int64, device=dev)
+    best = torch.full((B * W,), -1.0, dtype=torch.float32, device=dev)
+    best_p = torch.zeros(B * W, dtype=torch.int32, device=dev)
+    live = torch.nonzero(word_len.reshape(-1) > 0).flatten()
+    if live.numel() == 0:
+        return best.reshape(B, W), best_p.reshape(B, W)
+    pair = live // W
+    wlen = torch.clamp(word_len.reshape(-1)[live].to(torch.int64), max=WL_MAX)[:, None]  # (N, 1)
+    chars = word_chars.reshape(B * W, WL)[live].to(torch.int64)                         # (N, WL)
+    qwol = q_wo_len.to(torch.int64)[pair][:, None]                                      # (N, 1)
+    text = q_wo.to(torch.int64)[pair]                                                    # (N, TL)
+    a = torch.arange(TL, device=dev)[None, :]
+    text_ok = (a < qwol) & (text > 0)
+    # M[n, a]: bit i set where word char i equals text char a; padded by WL
+    # zero columns so window p reads columns p .. p + WL - 1
+    M = torch.zeros((len(live), TL + WL), dtype=torch.int64, device=dev)
     for i in range(WL):
-        ci = word_chars[:, :, i].to(torch.int64)
-        eq = (ci[:, :, None] == text[:, None, :]) & text_ok[:, None, :]
-        M[:, :, :TL] |= eq.to(torch.int64) << i
-    mask = torch.where(wlen >= 32, torch.full_like(wlen, 0xFFFFFFFF),
-                       (torch.ones_like(wlen) << wlen) - 1)[:, :, None]  # (B, W, 1)
-    V = mask.expand(B, W, TL).clone()
+        M[:, :TL] |= ((chars[:, i, None] == text) & text_ok).to(torch.int64) << i
+    mask = torch.where(wlen >= 32, torch.full_like(wlen, 0xFFFFFFFF), (torch.ones_like(wlen) << wlen) - 1)
+    V = mask.expand(-1, TL).clone()
     for r in range(WL):
-        act = (r < wlen)[:, :, None]
-        U = V & torch.where(act, M[:, :, r : r + TL], torch.zeros_like(V))
+        U = V & torch.where(r < wlen, M[:, r : r + TL], torch.zeros_like(V))
         V = ((V + U) | (V - U)) & mask
-    lcs = wlen[:, :, None] - popcount32(V)                               # (B, W, TL)
-    win = torch.minimum(wlen[:, :, None], qwol[:, None, None] - a[None, None, :])
-    total = (wlen[:, :, None] + win).to(torch.float32)
+    lcs = wlen - popcount32(V)                                                           # (N, TL)
+    total = (wlen + torch.minimum(wlen, qwol - a)).to(torch.float32)
     ratio = torch.floor(200.0 * lcs.to(torch.float32) / torch.clamp(total, min=1.0))
-    valid = (a[None, None, :] < qwol[:, None, None]) & (wlen[:, :, None] > 0)
-    ratio = torch.where(valid, ratio, torch.full_like(ratio, -1.0))
-    best = ratio.max(dim=2).values
-    best_p = (ratio == best[:, :, None]).to(torch.int32).argmax(dim=2)   # first max
-    return best, best_p.to(torch.int32)
+    ratio = torch.where(a < qwol, ratio, torch.full_like(ratio, -1.0))
+    m = ratio.max(dim=1).values
+    best[live] = m
+    best_p[live] = (ratio == m[:, None]).to(torch.int32).argmax(dim=1).to(torch.int32)   # first max
+    return best.reshape(B, W), best_p.reshape(B, W)
 
 
 def window_best(word_chars: torch.Tensor, word_len: torch.Tensor,

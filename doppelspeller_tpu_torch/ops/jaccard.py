@@ -57,8 +57,27 @@ class ExactEngine(nn.Module):
         self.union_sizes: Counter = Counter()     # blocks scored, by union size
         LOGGER.info("[ExactEngine] packed index %.2f GB, tb=%d", self.packed.numel() / 1e9, tb)
 
+    def check_plan(self, plan: QueryBlockPlan) -> None:
+        """The host part of a block: the kernels read packed[id] unchecked,
+        so the plan's union ids are held to the index here, where they are
+        still on the host; the block is counted under its union size."""
+        V = self.packed.shape[0]
+        if plan.union_ids.size and not (0 <= plan.union_ids.min() and plan.union_ids.max() < V):
+            raise ValueError(f"union ids outside the packed index's {V} rows")
+        self.union_sizes[plan.union_ids.shape[0]] += 1
+
     def topk_block(self, plan: QueryBlockPlan, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Top-k (scores f32, title positions i32) of one plan's block.
+        """Top-k (scores f32, title positions i32) of one plan's block."""
+        self.check_plan(plan)
+        dev = self.packed.device
+        return self.topk_union(torch.from_numpy(plan.union_ids).to(dev),
+                               torch.from_numpy(plan.w_pos).to(dev), k)
+
+    def topk_union(self, union_ids: torch.Tensor, w_pos: torch.Tensor,
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device part of a block: top-k of the queries whose trigrams
+        sit at ``w_pos`` (QB, LQ) in the union ``union_ids`` (U,), integer
+        tensors on the device that ``check_plan`` passed.  No host sync.
 
         Weights and the max-intersection bound are rebuilt from the resident
         tables as the reference does on the device: w_val = (idf[union] ‖
@@ -66,15 +85,9 @@ class ExactEngine(nn.Module):
         f32, slot U standing for a query's unused trigram slots.  The
         union's own padding rows (id 0) get no weight."""
         dev = self.packed.device
-        # the kernels read packed[id] unchecked: hold the ids to the index
-        # here, where they are still on the host
-        V = self.packed.shape[0]
-        if plan.union_ids.size and not (0 <= plan.union_ids.min() and plan.union_ids.max() < V):
-            raise ValueError(f"union ids outside the packed index's {V} rows")
-        uid = torch.from_numpy(plan.union_ids).to(dev).to(torch.int64)
+        uid = union_ids.to(torch.int64)
         u = uid.shape[0]
-        self.union_sizes[u] += 1
-        wp = torch.from_numpy(plan.w_pos).to(dev).to(torch.int64).clamp(max=u)
+        wp = w_pos.to(torch.int64).clamp(max=u)
         zero = torch.zeros(1, dtype=torch.float32, device=dev)
         w_val = torch.cat([self.idf[uid], zero])[wp]
         maxint = torch.cat([self.fb[uid], zero])[wp].sum(dim=1)
@@ -151,3 +164,10 @@ class JaccardScorer:
         ``index.title_ids``, sorted by descending score."""
         vals, pos = self.topk_device(queries, k=k, rows=rows)
         return vals.cpu().numpy(), pos.cpu().numpy()
+
+    def topk_title_ids(self, queries: TitleSet, k: Optional[int] = None,
+                       rows: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Like :meth:`topk` but with the positions mapped to the external
+        title ids."""
+        scores, pos = self.topk(queries, k=k, rows=rows)
+        return scores, self.index.title_ids[pos]

@@ -6,7 +6,8 @@ truth-side tables and the forest stay on the device; per call the engine
 takes the query rows and their candidate positions and returns per-row
 statistics (count at max, position of the first max, max probability) over
 candidate columns [col_lo, col_lo + narrow), so the waves of the adaptive
-depth cascade merge exactly.
+depth cascade merge exactly.  ``RerankEngine.score`` is the reference's
+host-stage entry: the probabilities of (query row, truth row) pairs.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ class RerankEngine(nn.Module):
 
         start, wlen, nwords = truth_words
         self.n_truth = float(n_truth)
+        # longest word per title (of its first 15), on the host for bucketing
+        self._wlen_max = wlen.max(axis=1)
         self.register_buffer("t_enc", put(truth_enc))
         self.register_buffer("t_len", put(truth_len, torch.int32))
         self.register_buffer("t_start", put(start, torch.int64))
@@ -100,7 +103,7 @@ class RerankEngine(nn.Module):
         cd = cand[:, col_lo : col_lo + K]
         # padding candidates read the last title (see ``fuzzy_decide``)
         pair_t = cd.reshape(-1).to(torch.int64).clamp(max=self.t_len.shape[0] - 1)
-        rows = torch.arange(R, device=cand.device).repeat_interleave(K)
+        rows = torch.arange(R * K, device=cand.device) // K
         preds = torch.empty(R * K, dtype=torch.float32, device=cand.device)
         for s in range(0, R * K, _PAIR_CHUNK):
             r = rows[s : s + _PAIR_CHUNK]
@@ -115,3 +118,38 @@ class RerankEngine(nn.Module):
         best_col = at_max.to(torch.int32).argmax(dim=1)                  # first max
         best_pos = torch.gather(cd, 1, best_col[:, None].to(torch.int64))[:, 0]
         return cnt, best_pos, mx
+
+    def score(self, q_enc: np.ndarray, q_len: np.ndarray, q_wo: np.ndarray,
+              q_wo_len: np.ndarray, pair_q: np.ndarray, pair_t: np.ndarray,
+              t_len_host: np.ndarray) -> np.ndarray:
+        """Probabilities float32[N] of N (query row, truth row) pairs, in
+        (TL, WL) buckets of the longer title of the pair and the candidate's
+        longest word, as the reference's host stage scores them (a pair
+        whose word bucket is wider than its title bucket is left at 0
+        there, and here)."""
+        L = q_enc.shape[1]
+        pair_len = np.maximum(q_len[pair_q], t_len_host[pair_t])
+        max_word = np.maximum(self._wlen_max[pair_t], 1)
+        buckets = [b for b in self.cfg.length_buckets if b < L] + [L]
+        w_buckets = [8, 16, 32, 64, L]
+        tb = np.searchsorted(np.asarray(buckets), pair_len)
+        wb = np.searchsorted(np.asarray(w_buckets), max_word)
+
+        def put(x, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)
+
+        qe, ql = put(q_enc), put(q_len, torch.int32)
+        qw, qwl = put(q_wo), put(q_wo_len, torch.int32)
+        out = np.zeros(len(pair_q), dtype=np.float32)
+        for ti, TL in enumerate(buckets):
+            for wi, WL in enumerate(w_buckets):
+                if WL > TL:
+                    continue
+                sel = np.flatnonzero((tb == ti) & (wb == wi))
+                for s in range(0, len(sel), _PAIR_CHUNK):
+                    idx = sel[s : s + _PAIR_CHUNK]
+                    pq, pt = put(pair_q[idx], torch.int64), put(pair_t[idx], torch.int64)
+                    out[idx] = self.score_pairs(qe[pq, :TL].contiguous(), ql[pq],
+                                                qw[pq, :TL].contiguous(), qwl[pq], pt, TL,
+                                                WL).cpu().numpy()
+        return out

@@ -22,6 +22,15 @@ CPU.  Stages:
    device engines serve both: a pair's ratio and probability do not depend
    on how it is batched.
 
+A batch of at most one query block (a single title among them) takes the
+one-dispatch path instead (``ops/serve_fused.py``): the three stages as one
+device program, replayed as a CUDA graph on the card, as the JAX package's
+``predict`` takes its fused path; ``serve_fused="off"`` and
+``cascade_impl="host"`` leave it.  Rows it cannot decide at its static
+model bucket, and rows over a capped fuzzy tile (``fuzzy_tile_cap``), go
+through the reference's host stages (``_stage_fuzzy``, ``_stage_model``),
+which index the truth arrays with numpy as the reference does.
+
 The TPU package's static slab and bucket shapes exist for XLA recompiles;
 here the rows are only grouped by the (TL, WL) bucket their candidates need
 and taken ``model_slab`` at a time.  Results do not depend on that padding.
@@ -42,7 +51,7 @@ from doppelspeller_tpu_torch.config import Config, get_config
 from doppelspeller_tpu_torch.device import resolve_device, synchronize
 from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.models.trainer import WordCounts
-from doppelspeller_tpu_torch.ops.features import split_words_host
+from doppelspeller_tpu_torch.ops.features import remove_spaces_host, split_words_host
 from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, title_content_hash
@@ -95,6 +104,21 @@ class PredictionResult:
 DEVICE_CASCADE_MIN_ROWS = 2048
 
 
+def _groupby_max_unique(q_idx: np.ndarray, values: np.ndarray, n_queries: int):
+    """For rows (q_idx, value): each query's first max row (−1 where it has
+    none) and whether exactly one row reaches the max.  Returns
+    (best_row[nq], unique[nq])."""
+    max_val = np.full(n_queries, -np.inf, dtype=np.float64)
+    np.maximum.at(max_val, q_idx, values.astype(np.float64))
+    is_max = values.astype(np.float64) == max_val[q_idx]
+    count_max = np.zeros(n_queries, dtype=np.int64)
+    np.add.at(count_max, q_idx[is_max], 1)
+    best_row = np.full(n_queries, -1, dtype=np.int64)
+    rows = np.flatnonzero(is_max)
+    best_row[q_idx[rows][::-1]] = rows[::-1]
+    return best_row, count_max == 1
+
+
 class Matcher:
     """End-to-end matcher over a truth database, on one device.
 
@@ -124,6 +148,7 @@ class Matcher:
         ts = [" ".join(sorted(t.split())) for t in truth.transformed]
         ts_enc = T.encode_titles(ts, config.max_characters)
         ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
+        self.ts_truth = (ts_enc, ts_len)
         self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                  config, self.device)
         self._word_counts: Optional[np.ndarray] = None
@@ -150,6 +175,7 @@ class Matcher:
         its next use.  ``None`` reads ``config.model_path`` then."""
         self.model = model
         self._rerank: Optional[RerankEngine] = None
+        self._fused = None            # the one-dispatch path, over this model
 
     @property
     def rerank(self) -> RerankEngine:
@@ -165,14 +191,25 @@ class Matcher:
                                         self.device)
         return self._rerank
 
-    def _reference_host_path(self, n_rows: int) -> bool:
-        """Whether the JAX package decides ``n_rows`` rows (one wave, past
-        the exact stage) in its host stages rather than its one-dispatch
-        path: a batch over one query block, or either path switched off."""
+    def _use_fused(self, rem: np.ndarray, impl: str) -> bool:
+        """Whether the one-dispatch path decides the rows ``rem``, as in the
+        JAX package: at most one query block, at least k titles, neither it
+        (``serve_fused="off"``) nor the device (``cascade_impl="host"``)
+        switched off."""
         cfg = self.cfg
+        if cfg.serve_fused == "off" or impl == "host":
+            return False
         qb = (cfg.fold_query_block or cfg.query_block) if self.scorer.folded is not None \
             else cfg.query_block
-        return cfg.serve_fused == "off" or cfg.cascade_impl == "host" or n_rows > qb
+        return len(rem) <= qb and self.index.num_titles >= cfg.top_n_predicting
+
+    def _fused_engine(self):
+        """The one-dispatch path over this matcher's engines, built at first use."""
+        if self._fused is None:
+            from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+
+            self._fused = FusedServe(self)
+        return self._fused
 
     # ------------------------------------------------------------- stages
 
@@ -194,13 +231,78 @@ class Matcher:
         res.stage[qi] = stage
         res.match_transformed[qi] = self.truth.transformed[pos]
 
+    def _stage_fuzzy(self, queries: TitleSet, rem: np.ndarray, cand_pos: np.ndarray,
+                     res: PredictionResult) -> None:
+        """The reference's host fuzzy stage for the rows ``rem`` and their
+        candidates ``cand_pos`` (R, K) (host positions): the prefilter on
+        numpy, the considered pairs' ratios on the device, a unique max over
+        the threshold matches.  A padding candidate raises ``IndexError``."""
+        cfg = self.cfg
+        R, K = cand_pos.shape
+        thr = cfg.levenshtein_ratio_threshold
+        q_len = queries.lengths[rem].astype(np.int64)
+        t_len = self.truth.lengths[cand_pos.reshape(-1)].reshape(R, K).astype(np.int64)
+        tot = q_len[:, None] + t_len
+        delta = np.abs(q_len[:, None] - t_len)
+        consider = (tot - delta) / np.maximum(tot, 1) * 100.0 >= thr
+
+        ratio = np.zeros((R, K), dtype=np.int32)
+        rows, cols = np.nonzero(consider)
+        if len(rows):
+            ts_all, ts_len_all = queries.encoded_token_sorted
+            ratio[rows, cols] = self.fuzzy.ratios(
+                queries.encoded[rem], queries.lengths[rem].astype(np.int32),
+                ts_all[rem][:, : cfg.max_characters], np.minimum(ts_len_all[rem], cfg.max_characters),
+                rows, cand_pos[rows, cols], self.truth.lengths, self.ts_truth[1],
+            )
+        kr, kc = np.nonzero(ratio > thr)
+        hits = 0
+        if len(kr):
+            best_row, unique = _groupby_max_unique(kr, ratio[kr, kc], R)
+            # a query whose max is tied between candidates drops to stage 3
+            for r in np.flatnonzero((best_row >= 0) & unique):
+                self._record(res, rem[r], int(cand_pos[r, kc[best_row[r]]]), 1.0, STAGE_FUZZY)
+                hits += 1
+        res.stage_counts["fuzzy"] = hits
+        LOGGER.info("Matched %d titles so far (fuzzy)", hits)
+
+    def _stage_model(self, queries: TitleSet, rem: np.ndarray, cand_pos: np.ndarray,
+                     res: PredictionResult, single: bool) -> None:
+        """The reference's host model stage: every candidate of the rows
+        ``rem`` scored; a unique max over the probability threshold matches,
+        or in ``single`` mode the first max of all, whatever its value."""
+        R, K = cand_pos.shape
+        if R == 0:
+            res.stage_counts["model"] = 0
+            return
+        flat_pos = cand_pos.reshape(-1).astype(np.int64)
+        q_idx = np.repeat(np.arange(R), K)
+        q_wo, q_wo_len = remove_spaces_host(queries.encoded[rem], queries.lengths[rem])
+        pred = self.rerank.score(queries.encoded[rem], queries.lengths[rem].astype(np.int32),
+                                 q_wo, q_wo_len, q_idx, flat_pos, self.truth.lengths)
+        hits = 0
+        if single:
+            best = int(np.argmax(pred))
+            self._record(res, rem[q_idx[best]], int(flat_pos[best]), float(pred[best]), STAGE_MODEL)
+            hits = 1
+        else:
+            best_row, unique = _groupby_max_unique(q_idx, pred, R)
+            for r in np.flatnonzero((best_row >= 0) & unique):
+                row = best_row[r]
+                if pred[row] > self.cfg.prediction_probability_threshold:
+                    self._record(res, rem[r], int(flat_pos[row]), float(pred[row]), STAGE_MODEL)
+                    hits += 1
+        res.stage_counts["model"] = hits
+        LOGGER.info("Matched %d titles (model stage)", hits)
+
     def _cascade_device(self, queries: TitleSet, rem: np.ndarray,
                         res: PredictionResult, waves: bool = True,
                         single: bool = False) -> None:
         """Retrieval, fuzzy and model stages for the rows ``rem``.  Without
-        ``waves`` stage 3 scores every candidate in one pass; ``single``
-        (one row) records the first max of all its probabilities whatever
-        its value and count."""
+        ``waves`` stage 3 scores every candidate in one pass, and a padding
+        candidate raises ``IndexError`` as the reference's host stages do;
+        ``single`` (one row) records the first max of all its probabilities
+        whatever its value and count."""
         cfg = self.cfg
         dev = self.device
         k = cfg.top_n_predicting
@@ -209,7 +311,10 @@ class Matcher:
         buckets_arr = np.asarray(buckets)
         # a fuzzy-considered candidate satisfies the length-delta prefilter,
         # so |t| <= ceil(|q|·(200−thr)/thr): the fuzzy tile is derived from
-        # the threshold and no considered pair can overflow it
+        # the threshold and no considered pair can overflow it, unless
+        # fuzzy_tile_cap caps the tile at the widest bucket within it; a row
+        # with a considered pair longer than that tile is flagged and decided
+        # again by the host stage on its candidates
         thr_i = int(cfg.levenshtein_ratio_threshold)
         q_len_all = queries.lengths.astype(np.int64)
         need_all = np.minimum((q_len_all * (200 - thr_i) + thr_i - 1) // thr_i,
@@ -222,22 +327,27 @@ class Matcher:
 
         t0 = time.time()
         _, cand = self.scorer.topk_device(queries, k=k, rows=rem)          # (R, k) i32
-        if not waves and self._reference_host_path(len(rem)):
+        if not waves:
             self._raise_on_padding(cand, order)
         synchronize(dev)
         t_retr = time.time()
         res.stage_seconds["retrieval"] = t_retr - t0
 
         # ---- stage 2: fuzzy, per tile bucket ----
+        cap = int(cfg.fuzzy_tile_cap)
+        cap_tl = max([b for b in buckets if b <= cap] or [buckets[0]])
         R = len(rem)
         ts_enc_all, ts_len_all = queries.encoded_token_sorted
         matched = np.zeros(R, bool)
+        over_rows = np.zeros(R, bool)
         best_pos = np.zeros(R, np.int64)
         probe_tl = np.zeros(R, np.int64)
         probe_wl = np.zeros(R, np.int64)
         for bi in np.unique(fzb):
             sel = np.flatnonzero(fzb == bi)
             TL = int(buckets_arr[bi])
+            if cap:
+                TL = min(TL, cap_tl)
             src = rem[sel]
             sel_d = torch.from_numpy(sel).to(dev)
             out = self.fuzzy.decide(
@@ -248,9 +358,8 @@ class Matcher:
                 cand[sel_d], TL,
             )
             m, bp, _ratio, over, ptl, pwl = (x.cpu().numpy() for x in out)
-            if over.any():
-                raise AssertionError("fuzzy tile overflow with an uncapped tile")
-            matched[sel] = m
+            matched[sel] = m & ~over
+            over_rows[sel] = over
             best_pos[sel] = bp
             probe_tl[sel] = ptl
             probe_wl[sel] = pwl
@@ -259,11 +368,16 @@ class Matcher:
             self._record(res, rem[j], int(best_pos[j]), 1.0, STAGE_FUZZY)
             hits += 1
         res.stage_counts["fuzzy"] = hits
+        if over_rows.any():
+            js = np.flatnonzero(over_rows)
+            LOGGER.warning("fuzzy device overflow on %d rows; host redo", len(js))
+            self._stage_fuzzy(queries, rem[js], cand[torch.from_numpy(js).to(dev)].cpu().numpy(), res)
+            res.stage_counts["fuzzy"] += hits
         t1 = time.time()
         res.stage_seconds["fuzzy"] = t1 - t_retr
 
         # ---- stage 3: model on still-unmatched rows ----
-        todo = np.flatnonzero(~matched)                     # indices into rem
+        todo = np.flatnonzero(res.stage[rem] == STAGE_NONE)     # indices into rem
         if len(todo) == 0:
             res.stage_counts["model"] = 0
             res.stage_seconds["model"] = time.time() - t1
@@ -289,10 +403,10 @@ class Matcher:
 
         def run_wave(rows_t: np.ndarray, narrow: int, col_lo: int = 0):
             """(cnt, pos, mx) host arrays over todo rows ``rows_t`` (others
-            left at cnt 0, mx −inf)."""
-            cnt = np.zeros(n, np.int64)
-            pos = np.zeros(n, np.int64)
-            mx = np.full(n, -np.inf, np.float32)
+            left at cnt 0, mx −inf), and (slabs, seconds to dispatch them,
+            seconds to fetch their results)."""
+            t_w = time.time()
+            pend = []
             for ti, TL in enumerate(buckets):
                 for wi, WL in enumerate(w_buckets):
                     if WL > TL:
@@ -301,14 +415,19 @@ class Matcher:
                     for s in range(0, len(sub), slab):
                         sl = sub[s : s + slab]
                         sl_d = torch.from_numpy(sl).to(dev)
-                        c, p, m = self.rerank.decide(
+                        pend.append((sl, self.rerank.decide(
                             q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
                             cand_todo[sl_d], TL, WL, narrow=narrow, col_lo=col_lo,
-                        )
-                        cnt[sl] = c.cpu().numpy()
-                        pos[sl] = p.cpu().numpy()
-                        mx[sl] = m.cpu().numpy()
-            return cnt, pos, mx
+                        )))
+            t_d = time.time()
+            cnt = np.zeros(n, np.int64)
+            pos = np.zeros(n, np.int64)
+            mx = np.full(n, -np.inf, np.float32)
+            for sl, (c, p, m) in pend:
+                cnt[sl] = c.cpu().numpy()
+                pos[sl] = p.cpu().numpy()
+                mx[sl] = m.cpu().numpy()
+            return cnt, pos, mx, (len(pend), t_d - t_w, time.time() - t_d)
 
         def apply(rows_t, cnt, pos, mx) -> int:
             thr = cfg.prediction_probability_threshold
@@ -321,7 +440,7 @@ class Matcher:
         k1 = int(cfg.model_depth_initial)
         adaptive = waves and 0 < k1 < k
         all_rows = np.arange(n, dtype=np.int64)
-        cnt_a, pos_a, mx_a = run_wave(all_rows, k1 if adaptive else 0)
+        cnt_a, pos_a, mx_a, _ = run_wave(all_rows, k1 if adaptive else 0)
         if single:
             self._record(res, rem[todo[0]], int(pos_a[0]), float(mx_a[0]), STAGE_MODEL)
             hits = 1
@@ -337,9 +456,21 @@ class Matcher:
             widen = all_rows[band]
             hits = apply(all_rows[~band], cnt_a, pos_a, mx_a)
             if len(widen):
-                cnt_b, pos_b, mx_b = run_wave(widen, 0, col_lo=k1)
+                LOGGER.info("model wave B: %d/%d rows widened by %d tail candidates",
+                            len(widen), n, k - k1)
+                cnt_b, pos_b, mx_b, slabs = run_wave(widen, 0, col_lo=k1)
+                LOGGER.info("model wave B: %d slabs dispatched %.2fs, fetched %.2fs", *slabs)
                 a_wins = mx_a[widen] >= mx_b[widen]         # ties keep A (first col)
                 tie = mx_a[widen] == mx_b[widen]
+                LOGGER.info("model wave B: tail won %d/%d widened rows, %d head=tail ties",
+                            int((~a_wins).sum()), len(widen), int(tie.sum()))
+                dump = os.environ.get("DOPPEL_DUMP_WAVES")
+                if dump:
+                    # per widened row, both waves' (max, position, count at
+                    # max), to calibrate model_trust_threshold offline
+                    np.savez(dump, widen=widen, mx_a=mx_a[widen], mx_b=mx_b[widen],
+                             pos_a=pos_a[widen], pos_b=pos_b[widen], cnt_a=cnt_a[widen],
+                             cnt_b=cnt_b[widen])
                 mx_a[widen] = np.where(a_wins, mx_a[widen], mx_b[widen])
                 pos_a[widen] = np.where(a_wins, pos_a[widen], pos_b[widen])
                 cnt_a[widen] = np.where(tie, cnt_a[widen] + cnt_b[widen],
@@ -387,11 +518,12 @@ class Matcher:
                              "fuzzy": 0.0, "model": 0.0}
         res.stage_counts.update(fuzzy=0, model=0)
         rem = np.flatnonzero(res.stage == STAGE_NONE)
-        if len(rem):
-            impl = cfg.cascade_impl
-            waves = not single and (
-                impl == "device"
-                or (impl == "auto" and len(rem) >= DEVICE_CASCADE_MIN_ROWS))
+        impl = cfg.cascade_impl
+        waves = not single and (
+            impl == "device" or (impl == "auto" and len(rem) >= DEVICE_CASCADE_MIN_ROWS))
+        if len(rem) and not waves and self._use_fused(rem, impl):
+            self._fused_engine().match(queries, rem, res, single)
+        elif len(rem):
             self._cascade_device(queries, rem, res, waves=waves, single=single)
         LOGGER.info("Matched %d/%d titles (exact %d, fuzzy %d, model %d)",
                     int((res.stage != STAGE_NONE).sum()), n, res.stage_counts["exact"],

@@ -10,7 +10,8 @@ plain versions are held equal to the JAX package by the other
 LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
 kernel).  D's and E's kernel, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
-gather and scoring.
+gather and scoring.  The one-dispatch path's graph replays are held
+against the same program run op by op, bit for bit.
 """
 
 import numpy as np
@@ -440,3 +441,81 @@ def test_features_for_pairs_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_array_equal(np.isnan(card), np.isnan(cpu))
     np.testing.assert_array_equal(np.nan_to_num(card[:, :36]), np.nan_to_num(cpu[:, :36]))
     np.testing.assert_allclose(np.nan_to_num(card), np.nan_to_num(cpu), atol=1e-5)
+
+
+# ------------------------------------------------- the one-dispatch path
+
+@pytest.fixture(scope="module")
+def serve_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the one-dispatch path replays CUDA graphs")
+    from doppelspeller_tpu_torch.config import Config
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+
+    cfg, truth, queries, _ = make_synthetic_world(4096, 256, config=Config(data_path="data"))
+    return cfg, truth, queries
+
+
+def _serve_matcher(serve_world, mode):
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, _ = serve_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return Matcher(cfg.with_(retrieval_mode=mode, query_block=8), truth, GBTModel.load(str(MODEL)),
+                   device="cuda")
+
+
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.uint8)
+
+
+@pytest.mark.parametrize("mode", ["exact", "folded"])
+def test_fused_replay_equals_eager(serve_world, mode):
+    """A request's graph replay (captured at its first request) equals the
+    same request's ``fused_cascade`` run op by op, bit for bit, on both
+    engines; a second request of the same key replays without a capture
+    and equals its own op-by-op run; the replays count their launches."""
+    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+    from doppelspeller_tpu_torch.utils.io import TitleSet
+
+    _cfg, _truth, queries = serve_world
+    fs = _serve_matcher(serve_world, mode)._fused_engine()
+    assert fs.mode == mode and fs.qb == 8
+    blocks = [TitleSet.from_titles(queries.titles[s : s + 8], config=fs.cfg) for s in range(0, 256, 8)]
+    keys = [fs.request(b, np.arange(8))[1] for b in blocks]
+    first = blocks[0]
+    again = next(b for b, k in zip(blocks[1:], keys[1:]) if k == keys[0])
+    for n, block in enumerate((first, again)):
+        caps, reps, a = FusedServe.captures, FusedServe.replays, jk.score_window_select.launches
+        got = fs.dispatch(block, np.arange(8))
+        assert (FusedServe.captures - caps, FusedServe.replays - reps) == (1 - n, 1)
+        # a replay launches A once; the first request also runs it op by op
+        assert jk.score_window_select.launches - a == 2 - n
+        ref = fs.dispatch(block, np.arange(8), eager=True)
+        assert np.array_equal(got[0], ref[0])
+        assert np.array_equal(_bits(got[1]), _bits(ref[1])) and np.array_equal(got[2], ref[2])
+    assert len(fs._graphs) == 1
+
+
+def test_fused_capture_failure_raises(serve_world, monkeypatch):
+    """A host sync inside the captured program breaks the capture: the
+    request raises, nothing falls back to eager execution, and no graph is
+    kept.  (Last of the file: the capture it breaks is the card's.)"""
+    from doppelspeller_tpu_torch.ops import serve_fused
+    from doppelspeller_tpu_torch.utils.io import TitleSet
+
+    _cfg, _truth, queries = serve_world
+    matcher = _serve_matcher(serve_world, "exact")
+    real = serve_fused.fused_cascade
+
+    def syncing(*args, **kwargs):
+        stats, cand = real(*args, **kwargs)
+        stats.sum().item()
+        return stats, cand
+
+    monkeypatch.setattr(serve_fused, "fused_cascade", syncing)
+    with pytest.raises(RuntimeError):
+        matcher.predict(TitleSet.from_titles(queries.titles[:3], config=matcher.cfg))
+    assert not matcher._fused_engine()._graphs

@@ -132,7 +132,18 @@ def test_fuzzy_decide_matches_jax(stage_inputs):
 
 
 def test_fuzzy_tile_cap_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        FuzzyEngine(np.zeros((1, 255), np.uint8), np.ones(1, np.int32), np.zeros((1, 255), np.uint8),
-                    np.ones(1, np.int32), np.ones(1, np.int32),
-                    Config(data_path="/tmp/x", fuzzy_tile_cap=64), "cpu")
+    """The engine takes ``fuzzy_tile_cap``: a row with a considered pair
+    longer than the capped tile is flagged for the host redo (``over``),
+    a row within it is not."""
+    enc = np.zeros((2, 255), np.uint8)
+    lens = np.array([40, 20], np.int32)
+    enc[0, :40] = 3
+    enc[1, :20] = 4
+    engine = FuzzyEngine(enc, lens, enc, lens, np.ones(2, np.int32),
+                         Config(data_path="/tmp/x", fuzzy_tile_cap=32), "cpu")
+    q = torch.from_numpy(enc)
+    ql = torch.from_numpy(lens)
+    matched, _pos, _ratio, over, _ptl, _pwl = engine.decide(
+        q, ql, q, ql, torch.tensor([[0, 1], [1, 0]], dtype=torch.int32), 32)
+    assert over.tolist() == [True, False]
+    assert matched[1]                 # row 0 was scored truncated: the host decides it
