@@ -98,7 +98,34 @@ Phases, each printing its seconds; any failure exits non-zero:
     E, with the planner's weights and bound), launched once per block with
     no launch of C, which must agree with the oracle engine's kernel D
     retrieval.
-14. cli: the command-line verbs at the reference example set's size.  One
+14. mesh: the title-sharded mesh (``parallel/sharded.py``) on two shards of
+    the one card, ``Mesh((cuda:0, cuda:0))``: the shard boundaries,
+    launches and merges of two cards.  The exact 150k world (default
+    config; two shards of 98,304 padded titles, tb 2,048 like the single
+    card's 163,840, so the windows line up): ``Matcher(mesh=)``
+    construction seconds, one untimed predict (every call of A and B held
+    against the plain version), then timed predicts in turns with a
+    single-card Matcher (single, mesh, mesh, single), where A must launch
+    twice per block, every launch gathering; ``scorer.topk`` must equal the
+    single card's exact engine bit for bit on all 16,384 queries and the
+    predictions the single card's row for row (ids, titles, stages,
+    predictions exactly).  The folded 500k world (two shards of 262,144
+    titles): an untimed predict, where A launches with folds=2 on both
+    shards' folded matrices (every call of A and B held against the plain
+    version at the shards' shapes), then timed predicts in turns with the folded
+    main path's Matcher; accuracy at least 0.80 and within 0.01 of the
+    single card's; the share of rows whose mesh top-k dominates the single
+    card's score by score is printed.  The oracle sample through ``build_sharded_index`` under the
+    oracle config: D once per shard and block, A never, candidates equal
+    to the single card's bit for bit.  Training: ``quick_train_rows`` and
+    ``train_model(..., mesh=)`` with the train phase's 60-round params, each
+    tree equal to the train phase's bit for bit (at 50,000 titles both
+    shards hold 32,768 padded titles with tb 2,048, so the candidates and
+    pairs are the single card's).  Last ``make_mesh()`` over the machine's
+    cards: the exact 150k predict on it equals the single card's, and on a
+    machine of one card ``make_mesh(2)`` must raise "need 2 devices, have
+    1".  Every time is printed with the card's name and power limit.
+15. cli: the command-line verbs at the reference example set's size.  One
     world of 30,000 titles and 20,000 queries (seed 7) is written as the
     example set's four pipe-delimited CSVs into a temporary data path
     (truth; the first 5,000 queries with their labels as the train rows, a
@@ -108,7 +135,9 @@ Phases, each printing its seconds; any failure exits non-zero:
     ``build-index``; ``train-model`` with the default Config (1,000 rounds,
     early stopping at 50); ``generate-predictions`` (it must load the
     checkpoint); ``get-predictions-accuracy`` (accuracy from its counts at
-    least 0.80).  ``final_output.csv`` must equal an in-process
+    least 0.80); ``build-index --devices 1`` and ``generate-predictions
+    --devices 1`` (a mesh of one card: it must load the checkpoint onto the
+    mesh and write the single device's file).  ``final_output.csv`` must equal an in-process
     ``Matcher.predict`` on the same files and model row for row, and a
     second ``generate-predictions`` and one run of ``python -m
     doppelspeller_tpu_torch.cli generate-predictions`` as a process of its
@@ -129,7 +158,7 @@ Phases, each printing its seconds; any failure exits non-zero:
     ``serve``, the calls of the run op by op before each capture).
 
 The line before the last is a JSON object with every kernel's route,
-source, launches in the path that carries it, error, times, bound (the
+source, launches in the path that carries it and in the mesh phase, error, times, bound (the
 least time the card could take for what these inputs need, from the
 published H100 peaks: A, D and E count the products of nonzero weights
 only and read only the rows some query weights; B counts the LCS steps its
@@ -1119,12 +1148,224 @@ def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
     return stats, (fs, probe)
 
 
+def mesh_path(torch, counters, smi, model, refs):
+    """The title-sharded mesh (``parallel/sharded.py``) on two shards of the
+    one card (see the module docstring, phase 14).  ``refs`` holds the
+    single card's worlds and results.  Returns the stats and each kernel's
+    launches over the phase's runs."""
+    from doppelspeller_tpu_torch.models.gbt import GBTParams
+    from doppelspeller_tpu_torch.models.trainer import train_model
+    from doppelspeller_tpu_torch.ops import features, fold
+    from doppelspeller_tpu_torch.ops import features_kernels as fk
+    from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+    from doppelspeller_tpu_torch.parallel.sharded import Mesh, build_sharded_index, make_mesh
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from doppelspeller_tpu_torch.synthetic import quick_train_rows
+
+    mesh = Mesh((torch.device("cuda", 0),) * 2)
+    stats, total = {"card": smi}, {k: 0 for k in counters}
+
+    def run(fn, mesh_run=True):
+        """``fn()`` with the counts set to 0 just before it and read just
+        after; a run on the mesh adds them to the phase's launches."""
+        reset_counts(counters)
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        launches = read_counts(counters)
+        for k, v in launches.items():
+            total[k] += v if mesh_run else 0
+        return out, launches, dt
+
+    def turns(one, m, queries, label):
+        """Timed predicts in turns, the single card's Matcher ``one`` and
+        the mesh's ``m`` (one, m, m, one), both warm, after the same
+        profiler passes; returns the mesh's last result and the stats."""
+        out = {"one_s": [], "mesh_s": [], "one_stage_s": [], "mesh_stage_s": []}
+        for who, matcher in (("one", one), ("mesh", m), ("mesh", m), ("one", one)):
+            res, launches, dt = run(lambda: matcher.predict(queries), who == "mesh")
+            out[f"{who}_s"].append(dt)
+            out[f"{who}_stage_s"].append(res.stage_seconds)
+            out[f"{who}_launches"] = launches
+            if who == "mesh":
+                mesh_res = res
+        print(f"# mesh {label}, timed predicts in turns (single card, mesh, mesh, single card), "
+              f"s: {', '.join(f'{x:.3f}' for x in out['one_s'][:1] + out['mesh_s'] + out['one_s'][1:])} "
+              f"= {len(queries) / min(out['mesh_s']):.1f} q/s on the mesh at best, "
+              f"{len(queries) / min(out['one_s']):.1f} on the single card, on {smi}; stage_seconds "
+              f"mesh {json.dumps({k: round(v, 4) for k, v in out['mesh_stage_s'][-1].items()})}, "
+              f"single card {json.dumps({k: round(v, 4) for k, v in out['one_stage_s'][-1].items()})}",
+              flush=True)
+        return mesh_res, out
+
+    # ---- exact, 150k titles x 16,384 queries ----
+    cfg_x, truth_x, queries_x, actual_x = refs["exact_world"]
+    one = Matcher(cfg_x, truth_x, model, device="cuda")
+    one.predict(queries_x)
+    t = time.time()
+    m = Matcher(cfg_x, truth_x, model, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    sc = m.scorer
+    W = sc.tb // 128
+    if sc.exact is None or sc.tb != refs["exact_tb"] or any(o % sc.tb for o in sc.offsets):
+        raise AssertionError(f"the exact mesh's windows are not the single card's: tb {sc.tb} "
+                             f"(single {refs['exact_tb']}), offsets {sc.offsets}")
+    print(f"# mesh exact 150k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s ({sc.ntp_local} "
+          f"padded titles a shard, tb {sc.tb}, W {W}, a packed shard "
+          f"{sc.exact[0].packed.numel() / 1e6:.1f} MB) on {smi}", flush=True)
+    with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
+        _, lu, untimed_s = run(lambda: m.predict(queries_x))
+    t = time.time()
+    check_calls(torch, jk, fk, spy_a.calls, spy_b.calls, "mesh exact untimed predict")
+    check_s = time.time() - t
+    del spy_a, spy_b
+    sc.exact[0].union_sizes.clear()
+    res, timing = turns(one, m, queries_x, "exact 150k")
+    lx = timing["mesh_launches"]
+    blocks = sum(sc.exact[0].union_sizes.values()) // 2
+    acc = check_prediction(res, actual_x, len(queries_x))
+    print(f"# mesh exact 150k predict: untimed {untimed_s:.3f} s, accuracy {acc:.4f}; A and B against "
+          f"the plain versions {check_s:.3f} s; launches in a timed predict {json.dumps(lx)}", flush=True)
+    if lx["A"] != 2 * blocks or lx["A gathering"] != lx["A"] or lx["B"] == 0 or lx["D"] or lx["C"]:
+        raise AssertionError(f"the exact mesh did not launch A, gathering, once per shard and "
+                             f"block ({blocks} blocks), and B: {lx}")
+    if not same_results(res, refs["exact_res"], 0.0):
+        raise AssertionError("the exact mesh's predictions differ from the single card's")
+    (v2, p2), lt, _ = run(lambda: sc.topk(queries_x))
+    v1, p1 = refs["exact_topk"]
+    if not (bits_equal(v1, v2) and np.array_equal(p1, p2)):
+        raise AssertionError(f"the exact mesh's top-k differs from the single card's on "
+                             f"{int((p1 != p2).any(axis=1).sum())} rows")
+    print(f"# mesh exact 150k: top-{p1.shape[1]} scores and positions of all {len(p1)} queries "
+          f"equal the single card's bit for bit; predictions equal row for row (ids, titles, "
+          f"stages, predictions)", flush=True)
+    stats["exact"] = {"init_s": init_s, "untimed_s": untimed_s, **timing, "accuracy": acc,
+                      "launches": lx, "blocks": blocks, "check_s": check_s,
+                      "untimed_launches": lu, "topk_launches": lt}
+    del m, sc, one
+    torch.cuda.empty_cache()
+
+    # ---- folded, 500k titles x 16,384 queries ----
+    cfg, truth, queries, actual = refs["folded_world"]
+    one = refs["folded_matcher"]
+    one.set_model(model)
+    one.predict(queries)
+    t = time.time()
+    m = Matcher(cfg, truth, model, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    sc = m.scorer
+    if sc.folded is None:
+        raise AssertionError("the 500k mesh did not take folded retrieval")
+    print(f"# mesh folded 500k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s "
+          f"({sc.ntp_local} titles a shard, Mc {sc.folded[0].mc.numel() / 1e6:.1f} MB a shard, "
+          f"ltw {sc.folded[0].ltw}) on {smi}", flush=True)
+    with Spy(fold, "score_window_select") as spy_f, Spy(features, "window_best") as spy_b:
+        _, lf, untimed_s = run(lambda: m.predict(queries))
+    on_shards = {id(e.mc) for e in sc.folded}
+    folds2 = [c for c in spy_f.calls if c[1]["folds"] == 2 and id(c[0][0]) in on_shards]
+    shards_hit = {id(c[0][0]) for c in folds2}
+    t = time.time()
+    check_calls(torch, jk, fk, spy_f.calls, spy_b.calls, "mesh folded untimed predict")
+    check_s = time.time() - t
+    del spy_f, spy_b
+    res, timing = turns(one, m, queries, "folded 500k")
+    acc = check_prediction(res, actual, len(queries))
+    acc_one = refs["folded_accuracy"]
+    (v2, _), _, _ = run(lambda: sc.topk(queries))
+    v1 = refs["folded_topk"]
+    dominate = float((v2 >= v1).all(axis=1).mean())
+    print(f"# mesh folded 500k predict: untimed {untimed_s:.3f} s (it builds the model stage's engine), "
+          f"accuracy {acc:.4f} against the single card's {acc_one:.4f}; A launched {lf['A']} times "
+          f"in the untimed predict, {len(folds2)} with folds=2 on the shards' folded matrices "
+          f"({len(shards_hit)} shards); A and B against the plain versions {check_s:.3f} s; rows "
+          f"whose mesh top-k dominates the single card's score by score: {dominate:.6f}", flush=True)
+    if len(shards_hit) != 2 or len(folds2) != lf["A"] or lf["A gathering"]:
+        raise AssertionError(f"the folded mesh did not launch A with folds=2 on each shard: {lf}")
+    if abs(acc - acc_one) > 0.01:
+        raise AssertionError(f"the folded mesh's accuracy {acc:.4f} is not within 0.01 of {acc_one:.4f}")
+    stats["folded"] = {"init_s": init_s, "untimed_s": untimed_s, **timing, "accuracy": acc,
+                       "accuracy_single": acc_one, "dominating_rows": dominate, "launches": lf,
+                       "check_s": check_s}
+    del m, sc, one
+    torch.cuda.empty_cache()
+
+    # ---- the oracle sample: retrieval under the oracle config ----
+    sample, cfg_o = refs["oracle_sample"], refs["oracle_cfg"]
+    t = time.time()
+    sc = build_sharded_index(truth, mesh, cfg_o)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    (v2, p2), lo, dt = run(lambda: sc.topk(sample))
+    v1, p1 = refs["oracle_topk"]
+    blocks = sum(sc.exact[0].union_sizes.values())
+    print(f"# mesh oracle sample: build_sharded_index {init_s:.3f} s (a packed shard "
+          f"{sc.exact[0].packed.numel() / 1e9:.2f} GB), retrieval of {len(sample)} queries "
+          f"{dt:.3f} s on {smi}; launches {json.dumps(lo)}; candidates equal the single card's "
+          f"bit for bit: {bits_equal(v1, v2) and np.array_equal(p1, p2)}", flush=True)
+    if lo["D"] != 2 * blocks or lo["A"] or lo["C"]:
+        raise AssertionError(f"the oracle mesh did not launch D once per shard and block alone: {lo}")
+    if not (bits_equal(v1, v2) and np.array_equal(p1, p2)):
+        raise AssertionError("the oracle mesh's candidates differ from the single card's")
+    stats["oracle"] = {"init_s": init_s, "retrieval_s": dt, "launches": lo, "blocks": blocks}
+    del sc
+    torch.cuda.empty_cache()
+
+    # ---- training: retrieval on the sharded index, data-parallel boosting ----
+    sub, train = quick_train_rows(cfg, truth)
+    params = GBTParams.from_config(cfg)
+    params.num_boost_round = params.early_stopping_rounds = TRAIN_ROUNDS
+    (own, report), ltr, dt = run(lambda: train_model(cfg, train=train, truth=sub, params=params,
+                                                     save=False, mesh=mesh))
+    ref = refs["train_model"]
+    equal = [all(getattr(own, k)[i].tobytes() == getattr(ref, k)[i].tobytes() for k in TREE_FIELDS)
+             for i in range(min(own.num_trees, ref.num_trees))]
+    print(f"# mesh train: {dt:.3f} s, timings (s) "
+          f"{json.dumps({k: round(v, 3) for k, v in report['timings'].items()})} on {smi}; "
+          f"{sum(equal)} of {ref.num_trees} trees equal the train phase's bit for bit; launches "
+          f"{json.dumps(ltr)}", flush=True)
+    if own.num_trees != ref.num_trees or not all(equal):
+        raise AssertionError("the mesh's training differs from the single card's")
+    if ltr["A"] == 0 or ltr["A gathering"] != ltr["A"] or ltr["B"] == 0:
+        raise AssertionError(f"the mesh's training did not launch A (gathering) and B: {ltr}")
+    stats["train"] = {"seconds": dt, "timings": report["timings"], "trees_equal": sum(equal),
+                      "launches": ltr}
+
+    # ---- a real mesh over the machine's cards ----
+    real = make_mesh()
+    n = torch.cuda.device_count()
+    if n == 1:
+        try:
+            make_mesh(2)
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("make_mesh(2) did not raise on a machine of one card")
+        if refused != "need 2 devices, have 1":
+            raise AssertionError(f"make_mesh(2) raised {refused!r}")
+    t = time.time()
+    res, lr, _ = run(lambda: Matcher(cfg_x, truth_x, model, mesh=real).predict(queries_x))
+    dt = time.time() - t
+    print(f"# mesh make_mesh(): {real.size} card(s) {[str(d) for d in real.devices]}; the exact "
+          f"150k Matcher and one predict {dt:.3f} s; equal to the single card's: "
+          f"{same_results(res, refs['exact_res'], 0.0)}" + ("; make_mesh(2) raised "
+                                                    f"{refused!r}" if n == 1 else ""), flush=True)
+    if not same_results(res, refs["exact_res"], 0.0):
+        raise AssertionError("the predict on make_mesh() differs from the single card's")
+    stats["real_mesh"] = {"cards": real.size, "seconds": dt, "launches": lr}
+    torch.cuda.empty_cache()
+    return stats, total
+
+
 # the reference example set's size (30,000 truth titles, 10,000 train and
 # 10,000 test rows), drawn as one synthetic world; the train rows are cut to
 # the world's first 5,000 queries to keep the phase near a minute (the test
 # rows stay the last 10,000)
 CLI_TITLES, CLI_QUERIES, CLI_TEST_ROWS, CLI_TRAIN_ROWS = 30_000, 20_000, 10_000, 5_000
 SERVE_TIMED = 200
+
 
 
 def write_example_set(make_world, cfg0, data_path):
@@ -1224,7 +1465,7 @@ def read_output(path):
 
 def run_cli_path(torch, counters, smi):
     """The command-line verbs at the example set's size, in-process through
-    ``cli.main`` on the card (see the module docstring, phase 14)."""
+    ``cli.main`` on the card (see the module docstring, phase 15)."""
     import ast
     import tempfile
     from collections import Counter
@@ -1258,8 +1499,9 @@ def run_cli_path(torch, counters, smi):
             def verb(argv, stdin=None, spy=True):
                 with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
                     out, err, launches, dt = run_verb(torch, cli, argv, counters, stdin)
-                stats["launches"][argv[0]] = launches
-                stats["seconds"][argv[0]] = dt
+                key = " ".join(argv[:1] + argv[-2:]) if "--devices" in argv else argv[0]
+                stats["launches"][key] = launches
+                stats["seconds"][key] = dt
                 if launches["A"] != launches["A gathering"]:
                     raise AssertionError(f"cli {argv[0]}: A launched without gathering: {launches}")
                 if spy:
@@ -1321,6 +1563,20 @@ def run_cli_path(torch, counters, smi):
                 raise AssertionError("final_output.csv differs from the in-process predict")
             if generate("second") != first:
                 raise AssertionError("a second generate-predictions wrote another file")
+
+            # a mesh of one card: build-index writes through ShardedJaccardScorer.save,
+            # generate-predictions loads the checkpoint onto the mesh
+            verb(["build-index", "--devices", "1"], spy=False)
+            records.messages.clear()
+            _, _, lm = verb(["generate-predictions", "--devices", "1"])
+            onto = any("onto the mesh" in m for m in records.messages)
+            with open(cfg.final_output_path, "rb") as f:
+                mesh_same = f.read() == first
+            print(f"# cli generate-predictions --devices 1: loaded the checkpoint onto the mesh: "
+                  f"{onto}; final_output.csv equal to the single device's: {mesh_same}", flush=True)
+            if not (onto and mesh_same) or lm["A"] == 0 or lm["B"] == 0:
+                raise AssertionError(f"generate-predictions --devices 1: onto the mesh {onto}, same "
+                                     f"file {mesh_same}, launches {lm}")
 
             # the module entry as its own process
             t = time.time()
@@ -1618,6 +1874,8 @@ def main() -> int:
     profile_predict(torch, exact, queries_x, "exact", ("A", "score_window_kernel"))
     phase("exact_profile", t)
     build_150k = packed_build_seconds(exact)
+    # the single card's references for the mesh phase
+    exact_topk, exact_tb = exact.scorer.topk(queries_x), exact.scorer.exact.tb
     del exact
     torch.cuda.empty_cache()
 
@@ -1687,8 +1945,21 @@ def main() -> int:
         raise AssertionError(f"the v1 path disagrees with kernel D, or did not launch E once per "
                              f"block without C: {lv}")
     phase("v1_path", t)
-    del oracle, engine, folded, v1, v2
+    del engine, v1, v2
+
+    # ---- the title-sharded mesh: two shards of the card ----
+    t = time.time()
+    refs = {"exact_world": (cfg_x, truth_x, queries_x, actual_x), "exact_res": res_x,
+            "exact_topk": exact_topk, "exact_tb": exact_tb,
+            "folded_world": (cfg, truth, queries, actual), "folded_accuracy": acc_asset,
+            "folded_topk": folded.scorer.topk(queries)[0], "folded_matcher": folded,
+            "oracle_sample": sample, "oracle_cfg": cfg_o, "oracle_topk": oracle.scorer.topk(sample),
+            "train_model": own_model}
+    del oracle, folded
     torch.cuda.empty_cache()
+    mesh_stats, lm = mesh_path(torch, counters, smi, model, refs)
+    del refs
+    phase("mesh", t)
 
     # ---- the command-line verbs at the example set's size ----
     t = time.time()
@@ -1696,6 +1967,10 @@ def main() -> int:
     phase("cli", t)
     cli_a = {verb: n["A"] for verb, n in cli_stats["launches"].items()}
     cli_b = {verb: n["B"] for verb, n in cli_stats["launches"].items()}
+
+    def plus(counts):
+        """A path's launches and the mesh phase's."""
+        return {k: counts[k] + lm[k] for k in counts}
 
     def entry(name, key, source, replaces, path, counts, stats, **extra):
         return {"name": name, "route": "cuda", "source": f"doppelspeller_tpu_torch/csrc/{source}",
@@ -1705,18 +1980,24 @@ def main() -> int:
 
     kernels = [
         entry("score_window_select", "A", "score_window.cu", "jaccard_pallas.py:263",
-              "folded main path (500k), bf16 weights; exact main path (150k) launched it "
-              f"{lx['A']} times, {lx['A gathering']} of them gathering: there its loads carry "
-              "kernel C's function (jaccard_pallas.py:29); the training path launched it "
-              f"{train['launches']['A']} times, every one gathering", la, ka, hgmma=hgmma["A"],
+              "folded main path (500k), bf16 weights, and the mesh phase (launches: both); exact "
+              f"main path (150k) launched it {lx['A']} times, {lx['A gathering']} of them "
+              "gathering: there its loads carry kernel C's function (jaccard_pallas.py:29); the "
+              f"training path launched it {train['launches']['A']} times, every one gathering",
+              plus(la), ka, hgmma=hgmma["A"],
               launches_by_path={"folded": la["A"], "exact": lx["A"], "train": train["launches"]["A"],
-                                "cli": cli_a, "serve_fused": {k: v["launches"]["A"] for k, v in serve.items()}},
+                                "cli": cli_a, "serve_fused": {k: v["launches"]["A"] for k, v in serve.items()},
+                                "mesh": {k: v["launches"]["A"] for k, v in mesh_stats.items()
+                                         if isinstance(v, dict) and "launches" in v}},
               **{k: ka[k] for k in ("tflops", "share_of_bound", "shapes")}),
         entry("window_best", "B", "window_lcs.cu", "features_pallas.py:53",
-              f"folded main path (500k); exact main path (150k) launched it {lx['B']} times, the "
-              f"training path {train['launches']['B']} times", la, kb,
+              f"folded main path (500k) and the mesh phase (launches: both); exact main path (150k) "
+              f"launched it {lx['B']} times, the training path {train['launches']['B']} times",
+              plus(la), kb,
               launches_by_path={"folded": la["B"], "exact": lx["B"], "train": train["launches"]["B"],
-                                "cli": cli_b, "serve_fused": {k: v["launches"]["B"] for k, v in serve.items()}},
+                                "cli": cli_b, "serve_fused": {k: v["launches"]["B"] for k, v in serve.items()},
+                                "mesh": {k: v["launches"]["B"] for k, v in mesh_stats.items()
+                                         if isinstance(v, dict) and "launches" in v}},
               **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
@@ -1726,26 +2007,31 @@ def main() -> int:
               f"no path of Matcher.predict: gather_rows.cu's own kernel was launched {lx['C']} "
               f"times by the exact main path (150k) and {lo['C']} by the oracle anchor; its "
               "function runs fused into kernel A's loads (exact main path, training path) and "
-              "kernel D's (oracle anchor), counted under gathering_launches",
-              lx, kc,
+              "kernel D's (oracle anchor), counted under gathering_launches; launches: the exact "
+              "main path's and the mesh phase's",
+              plus(lx), kc,
               fused_into=["doppelspeller_tpu_torch/csrc/score_window.cu",
                           "doppelspeller_tpu_torch/csrc/score_full.cu"],
               gathering_launches={"exact main path (A)": lx["A gathering"],
                                   "training path (A)": train["launches"]["A gathering"],
                                   "oracle anchor (D)": lo["D"]}),
         entry("score_full", "D", "score_full.cu", "jaccard_pallas.py:210",
-              "oracle anchor (500k, 6,000 queries), f32; every launch gathers: its loads carry "
-              "kernel C's function (jaccard_pallas.py:29)", lo, kd, hgmma=hgmma["D"],
+              "oracle anchor (500k, 6,000 queries), f32, and the mesh phase's oracle sample "
+              "(launches: both, "
+              f"{lm['D']} of them the mesh's); every launch gathers: its loads carry "
+              "kernel C's function (jaccard_pallas.py:29)", plus(lo), kd, hgmma=hgmma["D"],
               **{k: kd[k] for k in ("ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_by_bf16",
                                     "select_ms", "select_ms_bf16")}),
         entry("jaccard_topk_v1", "E", "score_full.cu", "jaccard_pallas.py:135",
-              "v1 path (the oracle sample's retrieval)", lv, ke),
+              "v1 path (the oracle sample's retrieval); launches: it and the mesh phase",
+              plus(lv), ke),
     ]
     print(f"# packed index build: {build_150k:.3f} s at {N_TITLES_EXACT} titles, "
           f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)
     print(f"# train {json.dumps(train)}", flush=True)
     print(f"# cli {json.dumps(cli_stats)}", flush=True)
     print(f"# serve_fused {json.dumps(serve)}", flush=True)
+    print(f"# mesh {json.dumps(mesh_stats)}", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

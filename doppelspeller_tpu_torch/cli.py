@@ -7,8 +7,10 @@ The JAX package's verbs with the same output lines, on ``argparse``:
 ``-v``/``-vv``/``-vvv`` log at WARNING/INFO/DEBUG (``LOGGING_LEVEL`` sets
 the count where no ``-v`` is given).  ``--device`` names the device every
 verb runs on: the card, ``cuda``, unless the caller asks for ``cpu``.
-``--devices`` and ``--platform`` take 0 or 1 (one device); sharding over
-several devices is not ported yet.
+``build-index``, ``train-model``, ``generate-predictions`` and ``serve``
+take ``--devices N``: 0 (the default) runs on that one device, N ≥ 1 on a
+mesh of N devices (``parallel/sharded.py``) of ``--platform`` (``cuda`` or
+``cpu``; default the type of ``--device``), as the JAX CLI's mesh.
 
 Verbs: ``stage-example-data-set``, ``build-index``, ``train-model``,
 ``generate-predictions``, ``closest-search-single-title``, ``serve`` and
@@ -49,10 +51,19 @@ def _echo(text: str = "") -> None:
     print(text, flush=True)
 
 
-def _single_device(args) -> None:
-    if args.devices not in (0, 1):
-        raise CLIError(f"--devices {args.devices}: sharding over several devices is not "
-                       "ported yet; use 0 or 1 (one device)")
+def _mesh(args, cfg):
+    """The mesh of ``--devices`` (None for 0: one device)."""
+    if not args.devices:
+        return None
+    import torch
+
+    from doppelspeller_tpu_torch.parallel.sharded import make_mesh
+
+    platform = args.platform or torch.device(args.device).type
+    try:
+        return make_mesh(args.devices, axis=cfg.mesh_axis, platform=platform)
+    except ValueError as exc:                   # fewer cards than asked for
+        raise CLIError(f"--devices {args.devices}: {exc}") from exc
 
 
 def stage_example_data_set(args) -> None:
@@ -79,10 +90,18 @@ def build_index(args) -> None:
     from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
     from doppelspeller_tpu_torch.utils.io import load_ground_truth
 
-    _single_device(args)
     cfg = get_config()
-    index = build_truth_index(load_ground_truth(cfg), cfg)
-    index.save(cfg.index_path)
+    truth = load_ground_truth(cfg)
+    mesh = _mesh(args, cfg)
+    if mesh is not None:
+        from doppelspeller_tpu_torch.parallel.sharded import build_sharded_index
+
+        scorer = build_sharded_index(truth, mesh, cfg)
+        scorer.save(cfg.index_path)
+        index = scorer.index
+    else:
+        index = build_truth_index(truth, cfg)
+        index.save(cfg.index_path)
     _echo(f"index saved to {cfg.index_path} "
           f"({index.num_titles} titles, {index.packed_nbytes / 1e6:.0f} MB packed)")
 
@@ -90,11 +109,11 @@ def build_index(args) -> None:
 @time_usage
 def train_model(args) -> None:
     """Train the model and save it to the config's model path."""
+    from doppelspeller_tpu_torch.config import get_config
     from doppelspeller_tpu_torch.models.trainer import train_model as _train
 
-    _single_device(args)
     LOGGER.info("Training the model!")
-    model, report = _train(device=args.device)
+    model, report = _train(device=args.device, mesh=_mesh(args, get_config()))
     em = report["error_matrix"]
     _echo(
         f"trees={model.num_trees} best={model.best_ntree_limit} "
@@ -113,10 +132,9 @@ def generate_predictions(args) -> None:
     from doppelspeller_tpu_torch.pipeline import Matcher
     from doppelspeller_tpu_torch.utils.io import load_test_data
 
-    _single_device(args)
     cfg = get_config()
     LOGGER.info("Generating the predictions!")
-    matcher = Matcher(cfg, device=args.device)
+    matcher = Matcher(cfg, device=args.device, mesh=_mesh(args, cfg))
     result = matcher.predict(load_test_data(cfg))
     result.save_csv(cfg.final_output_path, cfg.delimiter)
     _echo(f"output saved to {cfg.final_output_path}")
@@ -159,12 +177,11 @@ def serve(args) -> None:
     from doppelspeller_tpu_torch.pipeline import Matcher
     from doppelspeller_tpu_torch.utils.io import TitleSet, single_title_set
 
-    _single_device(args)
     cfg = get_config()
     if args.profile == "latency":
         cfg = cfg.with_(**LATENCY_PROFILE)
     t0 = time.time()
-    matcher = Matcher(cfg, device=args.device)
+    matcher = Matcher(cfg, device=args.device, mesh=_mesh(args, cfg))
     if args.warmup:
         # captures the graphs of the first shapes: short and long single
         # titles and a small batch
@@ -264,8 +281,12 @@ def _parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=argparse.SUPPRESS, help=argparse.SUPPRESS)
         if devices:
             sp.add_argument("--devices", type=int, default=0,
-                            help="0 or 1: one device (sharding is not ported yet).")
-            sp.add_argument("--platform", default=None, help="Unused with one device.")
+                            help="Run on a mesh of N devices: the truth index sharded over "
+                                 "the title axis, boosting and the fuzzy and model stages "
+                                 "data-parallel. 0 = one device (--device).")
+            sp.add_argument("--platform", default=None, choices=["cuda", "cpu"],
+                            help="The mesh's devices: 'cuda' (cards 0..N-1) or 'cpu' "
+                                 "(default: the type of --device).")
         return sp
 
     verb(stage_example_data_set, devices=False).add_argument(

@@ -12,6 +12,11 @@ unless the caller names the CPU.
   and the custom error FN + β·FP at the probability threshold.
 * Early stopping on the eval custom error with ``best_ntree_limit``.
 
+Data-parallel on a mesh (``train_gbt(mesh=)``, ``build_tree_shards``):
+each shard holds the bins of some rows, grows their histograms and routes
+them; the histograms add up on the first device, where the split is
+chosen once.
+
 One arithmetic on both devices: the level histograms are sums of ``g``
 and ``h`` over the key (node, feature, bin), formed with ``index_add_`` in
 fixed point (int64 multiples of 2^-s, s chosen per tree from the largest
@@ -38,7 +43,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,21 +180,30 @@ def fixed_point_shift(max_abs: torch.Tensor, n_keys: int) -> torch.Tensor:
     return (FIXED_POINT_BITS - e).clamp(max=100)
 
 
-def _quantize(v: torch.Tensor, n_keys: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(int64 round(v · 2^s), 2^-s) for ``fixed_point_shift(max|v|, n_keys)``:
-    any ``n_keys`` of the integers add up without overflow."""
-    s = fixed_point_shift(v.abs().max(), n_keys).to(torch.float32)
-    return torch.round(v * torch.exp2(s)).to(torch.int64), torch.exp2(-s)
+def _quantize(vs: Sequence[torch.Tensor], n_keys: int) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """(int64 round(v · 2^s) of each shard's ``v``, 2^-s on the first
+    shard's device) for ``fixed_point_shift(max |v| over every shard,
+    n_keys)``: any ``n_keys`` of the integers add up without overflow, and
+    every shard (one device's values are one shard) quantizes alike."""
+    first = vs[0].device
+    top = torch.stack([v.abs().max().to(first) for v in vs if v.numel()]).max()
+    s = fixed_point_shift(top, n_keys).to(torch.float32)
+    return [torch.round(v * torch.exp2(s.to(v.device))).to(torch.int64) for v in vs], torch.exp2(-s)
 
 
-def _segment_sum(key: torch.Tensor, q: torch.Tensor, unit: torch.Tensor,
+def _segment_sum(keys: Sequence[torch.Tensor], qs: Sequence[torch.Tensor], unit: torch.Tensor,
                  n_segments: int) -> torch.Tensor:
-    """float32[n_segments] sums of the fixed-point values ``q`` int64 (M,)
-    by ``key`` (M,), times ``unit``.  Integer addition is exact in any
-    order, so the card's atomics give the CPU's sums: each sum rounds once,
-    to f32."""
-    out = torch.zeros(n_segments, dtype=torch.int64, device=q.device)
-    return out.index_add_(0, key, q).to(torch.float32) * unit
+    """float32[n_segments] sums of the fixed-point values ``qs[i]`` int64
+    (M_i,) by ``keys[i]`` (M_i,) over every shard i, times ``unit``, on the
+    first shard's device.  Integer addition is exact in any order, so the
+    card's atomics give the CPU's sums and the shards' sums add up to one
+    device's: each sum rounds once, to f32."""
+    first = qs[0].device
+    total = None
+    for key, q in zip(keys, qs):
+        part = torch.zeros(n_segments, dtype=torch.int64, device=q.device).index_add_(0, key, q)
+        total = part.to(first) if total is None else total + part.to(first)
+    return total.to(torch.float32) * unit
 
 
 def build_tree(
@@ -212,37 +226,70 @@ def build_tree(
     missing mass tried left and right; the best split is the first maximum
     over (feature, edge, missing-left before missing-right).  Rows with
     g = h = 0 (eval rows) are routed and add nothing to any sum."""
-    N, F = bins.shape
-    dev = bins.device
+    *tree, (contrib,) = build_tree_shards([bins], [g], [h], depth=depth, lambda_=lambda_,
+                                          min_child_weight=min_child_weight)
+    return (*tree, contrib)
+
+
+def build_tree_shards(
+    bins: Sequence[torch.Tensor],
+    g: Sequence[torch.Tensor],
+    h: Sequence[torch.Tensor],
+    *,
+    depth: int,
+    lambda_: float,
+    min_child_weight: float,
+    n_rows: Optional[int] = None,
+):
+    """``build_tree`` over rows split into shards: ``bins[i]`` (N_i, F),
+    ``g[i]``, ``h[i]`` (N_i,) on one device each (a mesh's data-parallel
+    boosting).  Each shard sums its own rows' histograms in fixed point; the
+    sums add up on the first shard's device, where the split is chosen once,
+    and each shard routes its own rows.  Returns the tree on the first
+    shard's device and the list of each shard's ``contrib``.
+
+    ``n_rows`` (default: every shard's rows) sets the fixed-point shift with
+    the largest ``|g|`` and ``|h|`` of all shards.  A caller that pads
+    shards with rows of g = h = 0 passes the unpadded count, so that the
+    shift, and with it every sum, is bit for bit that of one device holding
+    the unpadded rows."""
+    first = bins[0].device
+    F = bins[0].shape[1]
+    n = sum(b.shape[0] for b in bins) if n_rows is None else n_rows
     n_heap = 2 ** (depth + 1) - 1
-    bins_i = bins.to(torch.int64)
+
+    bins_i = [b.to(torch.int64) for b in bins]
     # key of a row's bin within one node's histogram: f·NB + bin
-    fb = bins_i + torch.arange(F, device=dev, dtype=torch.int64)[None, :] * NB
-    rows = torch.arange(N, device=dev)
+    fb = [b + torch.arange(F, device=b.device, dtype=torch.int64)[None, :] * NB for b in bins_i]
+    rows = [torch.arange(b.shape[0], device=b.device) for b in bins]
 
-    feat = torch.full((n_heap,), -1, dtype=torch.int32, device=dev)
-    split_bin = torch.zeros((n_heap,), dtype=torch.int32, device=dev)
-    missing_left = torch.zeros((n_heap,), dtype=torch.bool, device=dev)
-    value = torch.zeros((n_heap,), dtype=torch.float32, device=dev)
-    is_leaf = torch.zeros((n_heap,), dtype=torch.bool, device=dev)
+    feat = torch.full((n_heap,), -1, dtype=torch.int32, device=first)
+    split_bin = torch.zeros((n_heap,), dtype=torch.int32, device=first)
+    missing_left = torch.zeros((n_heap,), dtype=torch.bool, device=first)
+    value = torch.zeros((n_heap,), dtype=torch.float32, device=first)
+    is_leaf = torch.zeros((n_heap,), dtype=torch.bool, device=first)
 
-    node = torch.zeros((N,), dtype=torch.int64, device=dev)   # heap position per sample
-    done = torch.zeros((N,), dtype=torch.bool, device=dev)    # sample sits at a final leaf
-    contrib = torch.zeros((N,), dtype=torch.float32, device=dev)
-    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    # heap position per sample, whether it sits at a final leaf, its leaf value
+    node = [torch.zeros((b.shape[0],), dtype=torch.int64, device=b.device) for b in bins]
+    done = [torch.zeros((b.shape[0],), dtype=torch.bool, device=b.device) for b in bins]
+    contrib = [torch.zeros((b.shape[0],), dtype=torch.float32, device=b.device) for b in bins]
+    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=first)
     # every level's keys: N·F values, the done rows' all in one spare slot
-    gq, g_unit = _quantize(g, N * F)
-    hq, h_unit = _quantize(h, N * F)
+    gq, g_unit = _quantize(g, n * F)
+    hq, h_unit = _quantize(h, n * F)
 
     for level in range(depth):
         n_nodes = 2 ** level
         offset = n_nodes - 1
-        # done rows hold no live local id: their keys go to the spare slot S
-        local = torch.where(done, 0, node - offset)
         S = n_nodes * F * NB
-        key = torch.where(done[:, None], S, local[:, None] * (F * NB) + fb).reshape(-1)
-        G = _segment_sum(key, gq[:, None].expand(N, F).reshape(-1), g_unit, S + 1)[:S]
-        H = _segment_sum(key, hq[:, None].expand(N, F).reshape(-1), h_unit, S + 1)[:S]
+        keys = []
+        local = []
+        for j in range(len(bins)):
+            # done rows hold no live local id: their keys go to the spare slot S
+            local.append(torch.where(done[j], 0, node[j] - offset))
+            keys.append(torch.where(done[j][:, None], S, local[j][:, None] * (F * NB) + fb[j]).reshape(-1))
+        G = _segment_sum(keys, [q[:, None].expand(-1, F).reshape(-1) for q in gq], g_unit, S + 1)[:S]
+        H = _segment_sum(keys, [q[:, None].expand(-1, F).reshape(-1) for q in hq], h_unit, S + 1)[:S]
         G, H = G.reshape(n_nodes, F, NB), H.reshape(n_nodes, F, NB)
 
         Gm, Hm = G[..., MISSING_BIN], H[..., MISSING_BIN]
@@ -280,25 +327,32 @@ def build_tree(
         value[sl] = node_value
         is_leaf[sl] = leaf_now
 
-        # route the samples
-        b = bins_i[rows, best_f[local]]
-        go_left = torch.where(b == MISSING_BIN, best_ml[local], b <= best_k[local])
-        newly_done = ~done & leaf_now[local]
-        contrib = contrib + torch.where(newly_done, node_value[local], 0.0)
-        done = done | newly_done
-        # a row that became a leaf here stays at offset + local, its own node
-        node = torch.where(done, node, 2 * node + 1 + (~go_left).to(torch.int64))
+        # each shard routes its own samples
+        for j in range(len(bins)):
+            dev = bins[j].device
+            bf, bk, bml, lf, nv = (x.to(dev) for x in (best_f, best_k, best_ml, leaf_now, node_value))
+            lj = local[j]
+            b = bins_i[j][rows[j], bf[lj]]
+            go_left = torch.where(b == MISSING_BIN, bml[lj], b <= bk[lj])
+            newly_done = ~done[j] & lf[lj]
+            contrib[j] = contrib[j] + torch.where(newly_done, nv[lj], 0.0)
+            done[j] = done[j] | newly_done
+            # a row that became a leaf here stays at offset + local, its own node
+            node[j] = torch.where(done[j], node[j], 2 * node[j] + 1 + (~go_left).to(torch.int64))
 
     # final level: everything still active becomes a leaf; its sums take g
     # and h rounded to bf16, as the reference's do on every path
     n_nodes = 2 ** depth
     offset = n_nodes - 1
-    local = torch.where(done, n_nodes, node - offset)
-    Gn = _segment_sum(local, *_quantize(g.to(torch.bfloat16).to(torch.float32), N), n_nodes + 1)
-    Hn = _segment_sum(local, *_quantize(h.to(torch.bfloat16).to(torch.float32), N), n_nodes + 1)
-    Gn, Hn = Gn[:n_nodes], Hn[:n_nodes]
+    local = [torch.where(d, n_nodes, nd - offset) for d, nd in zip(done, node)]
+    gb, g_unit = _quantize([x.to(torch.bfloat16).to(torch.float32) for x in g], n)
+    hb, h_unit = _quantize([x.to(torch.bfloat16).to(torch.float32) for x in h], n)
+    Gn = _segment_sum(local, gb, g_unit, n_nodes + 1)[:n_nodes]
+    Hn = _segment_sum(local, hb, h_unit, n_nodes + 1)[:n_nodes]
     leaf_val = -Gn / (Hn + lambda_)
-    contrib = contrib + torch.where(done, 0.0, leaf_val[local.clamp(max=n_nodes - 1)])
+    for j in range(len(bins)):
+        lv = leaf_val.to(bins[j].device)
+        contrib[j] = contrib[j] + torch.where(done[j], 0.0, lv[local[j].clamp(max=n_nodes - 1)])
     value[offset:] = leaf_val
     is_leaf[offset:] = True
     return feat, split_bin, missing_left, value, is_leaf, contrib
@@ -451,20 +505,40 @@ def predict_forest_margin(X: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor
 
 # ------------------------------------------------------------------ training
 
+def split_rows(x: torch.Tensor, shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``x`` (n, ...) on one device cut into runs of the shards' lengths,
+    each on its shard's device; rows past ``n`` (a mesh's padding) are 0."""
+    out, lo = [], 0
+    for sh in shards:
+        part = x[lo : lo + sh.shape[0]]
+        if part.shape[0] < sh.shape[0]:
+            part = torch.cat([part, part.new_zeros((sh.shape[0] - part.shape[0],) + x.shape[1:])])
+        out.append(part.to(sh.device))
+        lo += sh.shape[0]
+    return out
+
+
 def boost_segment(
-    bins: torch.Tensor, y: torch.Tensor, w_hist: torch.Tensor,
+    bins: Sequence[torch.Tensor], y: torch.Tensor, w_hist: torch.Tensor,
     w_tr: torch.Tensor, w_ev: torch.Tensor, margins: torch.Tensor,
     *, depth: int, n_rounds: int, eta: float, beta: float, threshold: float,
     lambda_: float, min_child_weight: float,
 ):
     """``n_rounds`` boosting rounds with no host round trip between them.
 
-    Train and eval rows share the sample axis; {0, 1} masks pick each
-    population: ``w_hist`` weights the histograms (0 for eval rows),
-    ``w_tr`` and ``w_ev`` the two custom-error sums.  Returns the stacked
-    tree arrays (feat, split_bin, missing_left, value·eta, is_leaf), the
-    per-round train and eval custom errors, and the final margins."""
-    dev = bins.device
+    ``bins`` is a list of shards of the rows, each on its own device: one
+    shard on one device, or a mesh's rows (padded at the end) split over its
+    devices.  The per-row vectors (n,) lie on the first shard's device, where
+    each round's gradients and margins are computed for all rows at once;
+    the shards grow the histograms of their rows and route them
+    (``build_tree_shards``).  Train and eval rows share the sample axis;
+    {0, 1} masks pick each population: ``w_hist`` weights the histograms (0
+    for eval rows), ``w_tr`` and ``w_ev`` the two custom-error sums.  Returns
+    the stacked tree arrays (feat, split_bin, missing_left, value·eta,
+    is_leaf), the per-round train and eval custom errors, and the final
+    margins."""
+    dev = margins.device
+    n = margins.shape[0]
     n_heap = 2 ** (depth + 1) - 1
     trees = (
         torch.empty((n_rounds, n_heap), dtype=torch.int32, device=dev),
@@ -477,12 +551,13 @@ def boost_segment(
     e_ev = torch.empty(n_rounds, dtype=torch.float32, device=dev)
     for r in range(n_rounds):
         g, h = margin_grad_hess(margins, y, beta)
-        *tree, contrib = build_tree(bins, g * w_hist, h * w_hist, depth=depth,
-                                    lambda_=lambda_, min_child_weight=min_child_weight)
+        *tree, contrib = build_tree_shards(
+            bins, split_rows(g * w_hist, bins), split_rows(h * w_hist, bins), depth=depth,
+            lambda_=lambda_, min_child_weight=min_child_weight, n_rows=n)
         tree[3] = tree[3] * eta
         for dst, src in zip(trees, tree):
             dst[r] = src
-        margins = margins + eta * contrib
+        margins = margins + eta * torch.cat([c.to(dev) for c in contrib])[:n]
         pos = torch.sigmoid(margins) > threshold
         miss = y * (~pos)
         false_pos = (1.0 - y) * pos
@@ -497,6 +572,7 @@ def train_gbt(
     params: Optional[GBTParams] = None,
     verbose_every: int = 25,
     device="cuda",
+    mesh=None,
 ) -> GBTModel:
     """Boosting with the custom objective, on ``device``.
 
@@ -504,9 +580,21 @@ def train_gbt(
     has XGBoost's semantics at segment granularity: training stops after
     the first segment whose best round is at least ``early_stopping_rounds``
     old, trees past the stop point are dropped, and ``best_ntree_limit`` is
-    the best round + 1."""
+    the best round + 1.
+
+    ``mesh`` (``parallel.sharded.Mesh``; ``device`` is then its first
+    device): data-parallel histograms.  The bins of the rows (train and
+    eval) are padded with rows of weight 0 to a multiple of the mesh's size
+    and split in order over its devices; each grows the histograms of its
+    rows, they add up on the first device, and every shard routes its own
+    rows.  The histograms add in fixed point with the shift of the unpadded
+    rows, and the gradients are computed for all rows on the first device,
+    as on one device (on the CPU an elementwise kernel rounds an array's
+    vectorized body and its tail apart, so a shard's sigmoid could differ
+    in the last bit): the trees are bit for bit those of one device."""
     p = params or GBTParams()
-    dev = resolve_device(device)
+    devices = tuple(mesh.devices) if mesh is not None else (resolve_device(device),)
+    dev = devices[0]
     N = X.shape[0]
     # |g| <= max(beta, 1) and |h| <= max(beta, 1) / 4 on 0/1 targets, so
     # every tree's shift is at least this one
@@ -518,16 +606,19 @@ def train_gbt(
     edges = compute_bin_edges(X)
     y_eval_np = y_eval.astype(np.float32)
     Ne = len(X_eval)
-    # one sample axis: train rows, then eval rows
+    # one sample axis: train rows, then eval rows (then a mesh's padding)
     bins_all = np.concatenate([bin_features(X, edges), bin_features(X_eval, edges)])
+    per = -(-len(bins_all) // len(devices))
+    bins_all = np.concatenate([bins_all, np.zeros((per * len(devices) - len(bins_all), X.shape[1]),
+                                                  np.uint8)])
+    bins_d = [torch.from_numpy(bins_all[i * per : (i + 1) * per]).to(d) for i, d in enumerate(devices)]
     y_all = np.concatenate([y.astype(np.float32), y_eval_np])
     w_hist = np.concatenate([np.ones(N, np.float32), np.zeros(Ne, np.float32)])
 
-    bins_d = torch.from_numpy(bins_all).to(dev)
     y_d = torch.from_numpy(y_all).to(dev)
     w_hist_d = torch.from_numpy(w_hist).to(dev)
     w_ev_d = 1.0 - w_hist_d
-    m = torch.full((len(bins_all),), _logit(p.base_score), dtype=torch.float32, device=dev)
+    m = torch.full((len(y_all),), _logit(p.base_score), dtype=torch.float32, device=dev)
 
     segment = min(SEGMENT_ROUNDS, p.num_boost_round)
     chunks = []

@@ -1,7 +1,7 @@
 """Training pipeline: assemble pairs → features → boosted trees.
 
 The JAX package's ``models/trainer.py`` on one device (the card unless the
-caller names the CPU):
+caller names the CPU) or a mesh (``parallel/sharded.py``):
 
 * GENERATED pairs: every truth title with a transformed length > 9 is
   misspelled once → target 1;
@@ -208,6 +208,7 @@ def train_model(
     params: Optional[GBTParams] = None,
     save: bool = True,
     device="cuda",
+    mesh=None,
 ) -> Tuple[GBTModel, dict]:
     """End-to-end training on ``device``.  Returns the model and a report
     dict (error matrix, eval custom error, feature importance, history,
@@ -217,9 +218,14 @@ def train_model(
     ``config`` defaults to ``get_config()``, ``truth`` and ``train`` to
     the CSV files it names.  Candidate retrieval is exact at any size: the
     scorer is built without the truth encodings, which only the folded
-    engine needs."""
+    engine needs.
+
+    ``mesh`` (``parallel.sharded.Mesh``; ``device`` is then its first
+    device): retrieval over the title-sharded index and data-parallel
+    boosting (``train_gbt(mesh=)``); the features are computed on the first
+    device."""
     cfg = config or get_config()
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
 
     def clock() -> float:
         synchronize(dev)
@@ -229,7 +235,11 @@ def train_model(
     t0 = clock()
     truth = truth or load_ground_truth(cfg)
     train = train or load_train_data(cfg)
-    if scorer is None:
+    if scorer is None and mesh is not None:
+        from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
+
+        scorer = ShardedJaccardScorer(build_truth_index(truth, cfg), mesh, cfg)
+    elif scorer is None:
         scorer = JaccardScorer(build_truth_index(truth, cfg), cfg, dev)
     timings["setup_seconds"] = clock() - t0
 
@@ -261,7 +271,7 @@ def train_model(
 
     params = params or GBTParams.from_config(cfg)
     t0 = clock()
-    model = train_gbt(X_train, y_train, X_eval, y_eval, params, device=dev)
+    model = train_gbt(X_train, y_train, X_eval, y_eval, params, device=dev, mesh=mesh)
     timings["boosting_seconds"] = clock() - t0
     LOGGER.info(
         "train timings: setup %.1fs | candidates %.1fs | features %.1fs | boosting %.1fs",

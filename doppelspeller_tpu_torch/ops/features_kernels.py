@@ -89,11 +89,12 @@ def window_best(word_chars: torch.Tensor, word_len: torch.Tensor,
     pos = torch.empty((B, W), dtype=torch.int32, device=dev)
     if B * W == 0:
         return ratio, pos
-    rc = _build.lib().doppel_window_best(
-        word_chars.data_ptr(), word_len.data_ptr(), q_wo.data_ptr(), q_wo_len.data_ptr(),
-        ratio.data_ptr(), pos.data_ptr(), B, W, WL, TL,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):          # the launch goes to the tensors' card
+        rc = _build.lib().doppel_window_best(
+            word_chars.data_ptr(), word_len.data_ptr(), q_wo.data_ptr(), q_wo_len.data_ptr(),
+            ratio.data_ptr(), pos.data_ptr(), B, W, WL, TL,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "doppel_window_best")
     window_best.launches += 1
     return ratio, pos

@@ -93,12 +93,15 @@ def build_folded_matrix(encoded: np.ndarray, lengths: np.ndarray, fold_map: np.n
 
 
 def build_trigram_list_matrix(encoded: np.ndarray, lengths: np.ndarray, ntp: int,
-                              device) -> Tuple[torch.Tensor, int]:
+                              device, ltw: Optional[int] = None) -> Tuple[torch.Tensor, int]:
     """(int32[ntp, Ltw] on ``device``, Ltw): each title's trigram ids, sorted,
-    with V in repeated and unused slots and in padding titles."""
+    with V in repeated and unused slots and in padding titles.  ``ltw``
+    forces the width (a mesh's shards take the width of all the titles);
+    by default it is that of these titles."""
     nt = encoded.shape[0]
     l_eff = int(lengths.max(initial=3)) if nt else 3
-    ltw = max(_round_up(l_eff - 2, 8), 8)
+    if ltw is None:
+        ltw = max(_round_up(l_eff - 2, 8), 8)
     out = np.full((ntp, ltw), V, dtype=np.int32)
     # the reference's layout: ids sorted with V for invalid positions, then
     # each repeat replaced by V in place (membership is all the rescore reads)
@@ -194,7 +197,10 @@ def rescore_exact(tl_mat: torch.Tensor, sums: torch.Tensor, ids: torch.Tensor,
 class FoldedEngine(nn.Module):
     """Device-resident folded-retrieval state for one truth set."""
 
-    def __init__(self, index, truth: TitleSet, cfg: Config, device="cuda", *, tb: int):
+    def __init__(self, index, truth: TitleSet, cfg: Config, device="cuda", *, tb: int,
+                 ltw: Optional[int] = None):
+        """``ltw``: the width of the trigram lists (default: that of these
+        titles; see ``build_trigram_list_matrix``)."""
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -213,7 +219,8 @@ class FoldedEngine(nn.Module):
         self.register_buffer("mc", mc)
         self.register_buffer("fold_ext", torch.from_numpy(np.stack(fold_maps).astype(np.int64)).to(device))
         if self.kprime > 0:
-            tl, self.ltw = build_trigram_list_matrix(truth.encoded, truth.lengths, ntp, device)
+            tl, self.ltw = build_trigram_list_matrix(truth.encoded, truth.lengths, ntp, device,
+                                                     ltw=ltw)
         else:
             tl, self.ltw = None, 0
         self.register_buffer("tl", tl)

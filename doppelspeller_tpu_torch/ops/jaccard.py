@@ -113,6 +113,16 @@ class JaccardScorer:
         self.cfg = config
         self.index = index
         self.device = resolve_device(device)
+        folded = self._wants_folded(index, config, truth)
+        tb = 2048 if index.padded_titles % 2048 == 0 else config.title_block
+        self.folded = FoldedEngine(index, truth, config, self.device, tb=tb) if folded else None
+        self.exact = None if folded else ExactEngine(index, config, self.device, tb=tb)
+
+    @staticmethod
+    def _wants_folded(index: TruthIndex, config: Config, truth: Optional[TitleSet]) -> bool:
+        """Whether ``retrieval_mode`` takes the folded engine: ``"folded"``,
+        or ``"auto"`` given the truth encodings at ``folded_min_titles``
+        titles or more."""
         mode = config.retrieval_mode
         if mode not in ("auto", "exact", "folded"):
             raise ValueError(f"unknown retrieval_mode {mode!r}")
@@ -122,10 +132,8 @@ class JaccardScorer:
         )
         if folded and truth is None:
             raise ValueError("retrieval_mode='folded' needs the truth TitleSet "
-                             "(encodings): pass truth= to JaccardScorer")
-        tb = 2048 if index.padded_titles % 2048 == 0 else config.title_block
-        self.folded = FoldedEngine(index, truth, config, self.device, tb=tb) if folded else None
-        self.exact = None if folded else ExactEngine(index, config, self.device, tb=tb)
+                             "(encodings): pass truth= to the scorer")
+        return folded
 
     def topk_device(self, queries: TitleSet, k: Optional[int] = None,
                     rows: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:

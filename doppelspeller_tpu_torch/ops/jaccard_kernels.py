@@ -2,7 +2,10 @@
 E (the v1 entry over D's kernel).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-PyTorch version on CPU tensors; there is no other route.  They replace the
+PyTorch version on CPU tensors; there is no other route.  A launch runs
+with its tensors' card made the current device, since the kernels' launch
+set-up (``cudaFuncSetAttribute``) acts on the current device: a shard of a
+mesh on another card than the current one launches there.  They replace the
 TPU kernels of ``doppelspeller_tpu/ops/jaccard_pallas.py``:
 
 - A ``score_window_select`` (``csrc/score_window.cu``) ↔ ``_score_kernel_v3``:
@@ -255,11 +258,13 @@ def score_window_select(
     img = kernel_a_weights(w, folds, score_dtype)
     ids32 = None if union_ids is None else union_ids.to(torch.int32).contiguous()
     _check_launch("kernel A", rows_u8, img, sums, maxint, *(() if ids32 is None else (ids32,)))
-    rc = _build.lib().doppel_score_window_select(
-        rows_u8.data_ptr(), None if ids32 is None else ids32.data_ptr(), img.data_ptr(),
-        sums.data_ptr(), maxint.data_ptr(), wmax.data_ptr(), warg.data_ptr(), QB, U // folds, folds,
-        nbytes, img.shape[0], ntp // tb, int(nt), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _build.lib().doppel_score_window_select(
+            rows_u8.data_ptr(), None if ids32 is None else ids32.data_ptr(), img.data_ptr(),
+            sums.data_ptr(), maxint.data_ptr(), wmax.data_ptr(), warg.data_ptr(), QB, U // folds,
+            folds, nbytes, img.shape[0], ntp // tb, int(nt),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "doppel_score_window_select")
     score_window_select.launches += 1
     if ids32 is not None:
@@ -303,8 +308,9 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((U, nbytes), dtype=torch.uint8, device=dev)
     if U == 0:
         return out
-    rc = _build.lib().doppel_gather_rows(src.data_ptr(), ids32.data_ptr(), out.data_ptr(), U,
-                                         nbytes, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _build.lib().doppel_gather_rows(src.data_ptr(), ids32.data_ptr(), out.data_ptr(), U,
+                                             nbytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "doppel_gather_rows")
     gather_rows.launches += 1
     return out
@@ -366,11 +372,12 @@ def _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, out_dty
     out = torch.empty((QB, nbytes * 8), dtype=out_dtype, device=dev)
     if QB == 0:
         return out
-    rc = _build.lib().doppel_score_full(
-        packed.data_ptr(), ids32.data_ptr(), img.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
-        out.data_ptr(), img.shape[0], int(out_dtype == torch.bfloat16), QB, U, nbytes, tb, int(nt),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _build.lib().doppel_score_full(
+            packed.data_ptr(), ids32.data_ptr(), img.data_ptr(), sums.data_ptr(), maxint.data_ptr(),
+            out.data_ptr(), img.shape[0], int(out_dtype == torch.bfloat16), QB, U, nbytes, tb,
+            int(nt), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "doppel_score_full")
     entry.launches += 1
     return out

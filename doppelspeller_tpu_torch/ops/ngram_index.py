@@ -42,6 +42,21 @@ def title_content_hash(encoded: np.ndarray, lengths: np.ndarray) -> str:
     return h.hexdigest()
 
 
+def _check_format(z, path: str) -> None:
+    if "format" not in z.files or str(z["format"]) != INDEX_FORMAT:
+        raise ValueError(f"{path} is not a {INDEX_FORMAT} checkpoint")
+
+
+def checkpoint_holds(path: str, truth: TitleSet) -> bool:
+    """Whether the checkpoint at ``path`` holds exactly ``truth`` (count,
+    ids, content hash), read without its trigram rows; ValueError for a
+    file of another format."""
+    with np.load(path) as z:
+        _check_format(z, path)
+        return (int(z["num_titles"]) == len(truth) and np.array_equal(z["title_ids"], truth.ids)
+                and str(z["content_hash"]) == title_content_hash(truth.encoded, truth.lengths))
+
+
 @dataclass
 class TruthIndex:
     idf: np.ndarray         # float32[V] ln(N/df), 0 for unobserved trigrams
@@ -80,8 +95,7 @@ class TruthIndex:
         """Read a checkpoint of ``save``; ValueError for a file of another
         format."""
         with np.load(path) as z:
-            if "format" not in z.files or str(z["format"]) != INDEX_FORMAT:
-                raise ValueError(f"{path} is not a {INDEX_FORMAT} checkpoint")
+            _check_format(z, path)
             return cls(**{k: z[k] for k in _INDEX_ARRAYS},
                        num_titles=int(z["num_titles"]), padded_titles=int(z["padded_titles"]),
                        max_idf=float(z["max_idf"]), content_hash=str(z["content_hash"]))

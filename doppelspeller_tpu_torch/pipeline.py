@@ -1,8 +1,8 @@
 """The prediction cascade: exact → Jaccard top-n → fuzzy Levenshtein → model.
 
 The JAX package's ``pipeline.py`` (``Matcher.predict`` with its device
-cascade) in PyTorch, on one device: the card unless the caller names the
-CPU.  Stages:
+cascade) in PyTorch, on one device, the card unless the caller names the
+CPU, or on a mesh (``parallel/sharded.py``).  Stages:
 
 1. **Exact**: transformed-title lookup (on duplicate truth titles the last
    id wins), prediction 1.0.
@@ -54,8 +54,14 @@ from doppelspeller_tpu_torch.models.trainer import WordCounts
 from doppelspeller_tpu_torch.ops.features import remove_spaces_host, split_words_host
 from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
-from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, title_content_hash
+from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, checkpoint_holds
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
+from doppelspeller_tpu_torch.parallel.sharded import (
+    Mesh,
+    ShardedJaccardScorer,
+    replicate,
+    row_parallel,
+)
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet, as_int64, load_ground_truth, read_csv
 
@@ -120,25 +126,36 @@ def _groupby_max_unique(q_idx: np.ndarray, values: np.ndarray, n_queries: int):
 
 
 class Matcher:
-    """End-to-end matcher over a truth database, on one device.
+    """End-to-end matcher over a truth database, on one device or a mesh.
 
     ``truth`` defaults to ``load_ground_truth(config)``.  Without ``index``
     the index checkpoint at ``config.index_path`` is used when its count,
     ids and content hash match the truth; a checkpoint that does not match,
     or that this package cannot read (the JAX package's among them), is
     rebuilt with a warning.  ``model`` defaults to ``config.model_path``,
-    read at the first use of stage 3."""
+    read at the first use of stage 3.
+
+    ``mesh`` (``parallel.sharded.Mesh``; ``device`` is then its first
+    device): the index (the checkpoint's, the given one, or one built) is
+    sharded over the mesh's title axis, and the fuzzy and model stages run
+    data-parallel over the rows, on one copy of their engine per distinct
+    device.  A mesh never takes the one-dispatch path."""
 
     def __init__(self, config: Optional[Config] = None, truth: Optional[TitleSet] = None,
                  model: Optional[GBTModel] = None, device="cuda", *,
-                 index: Optional[TruthIndex] = None, use_index_checkpoint: bool = True):
+                 index: Optional[TruthIndex] = None, use_index_checkpoint: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.cfg = config = config or get_config()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.truth = truth = truth or load_ground_truth(config)
         if index is None and use_index_checkpoint and os.path.exists(config.index_path):
-            index = self._checkpoint(config.index_path, truth)
+            index = self._checkpoint(config.index_path, truth, on_mesh=mesh is not None)
         self.index = index or build_truth_index(truth, config)
-        self.scorer = JaccardScorer(self.index, config, self.device, truth)
+        if mesh is None:
+            self.scorer = JaccardScorer(self.index, config, self.device, truth)
+        else:
+            self.scorer = ShardedJaccardScorer(self.index, mesh, config, truth=truth)
         # exact-match lookup: duplicate transformed titles → last id wins
         self.reverse: Dict[str, int] = {
             t: int(i) for t, i in zip(truth.transformed, truth.ids)
@@ -151,23 +168,32 @@ class Matcher:
         self.ts_truth = (ts_enc, ts_len)
         self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                  config, self.device)
+        self._fuzzy_copies = replicate(self.fuzzy, mesh) if mesh is not None else None
         self._word_counts: Optional[np.ndarray] = None
         self.set_model(model)
 
     @staticmethod
-    def _checkpoint(path: str, truth: TitleSet) -> Optional[TruthIndex]:
+    def _checkpoint(path: str, truth: TitleSet, on_mesh: bool = False) -> Optional[TruthIndex]:
         """The checkpointed index at ``path`` if it holds this truth, else None."""
+        where = " on the mesh" if on_mesh else ""
         try:
-            loaded = TruthIndex.load(path)
+            if checkpoint_holds(path, truth):
+                loaded = TruthIndex.load(path)
+                LOGGER.info("loaded index checkpoint from %s%s", path, " onto the mesh" if on_mesh else "")
+                return loaded
         except Exception as exc:  # stale, old-format or foreign checkpoint
-            LOGGER.warning("index checkpoint at %s unreadable (%s); rebuilding", path, exc)
+            LOGGER.warning("index checkpoint at %s unreadable (%s); rebuilding%s", path, exc, where)
             return None
-        if (loaded.num_titles == len(truth) and np.array_equal(loaded.title_ids, truth.ids)
-                and loaded.content_hash == title_content_hash(truth.encoded, truth.lengths)):
-            LOGGER.info("loaded index checkpoint from %s", path)
-            return loaded
-        LOGGER.warning("index checkpoint at %s does not match the truth data; rebuilding", path)
+        LOGGER.warning("index checkpoint at %s does not match the truth data; rebuilding%s", path, where)
         return None
+
+    def _decide(self, engine, copies, *rows, **kw):
+        """``engine.decide(*rows, **kw)``; under a mesh each shard decides a
+        run of the rows on its device's copy of the engine (``copies``):
+        each row alone, so the result is one device's."""
+        if self.mesh is None:
+            return engine.decide(*rows, **kw)
+        return row_parallel(self.mesh, lambda d, *part: copies[d].decide(*part, **kw), *rows)
 
     def set_model(self, model: Optional[GBTModel]) -> None:
         """Take another model for stage 3 (say, one just trained) over the
@@ -175,6 +201,7 @@ class Matcher:
         its next use.  ``None`` reads ``config.model_path`` then."""
         self.model = model
         self._rerank: Optional[RerankEngine] = None
+        self._rerank_copies = None
         self._fused = None            # the one-dispatch path, over this model
 
     @property
@@ -189,15 +216,17 @@ class Matcher:
             self._rerank = RerankEngine(self.truth.encoded, self.truth.lengths, self.truth_words,
                                         self._word_counts, self.model, len(self.truth), self.cfg,
                                         self.device)
+            if self.mesh is not None:
+                self._rerank_copies = replicate(self._rerank, self.mesh)
         return self._rerank
 
     def _use_fused(self, rem: np.ndarray, impl: str) -> bool:
         """Whether the one-dispatch path decides the rows ``rem``, as in the
-        JAX package: at most one query block, at least k titles, neither it
-        (``serve_fused="off"``) nor the device (``cascade_impl="host"``)
-        switched off."""
+        JAX package: one device (no mesh), at most one query block, at
+        least k titles, neither it (``serve_fused="off"``) nor the device
+        (``cascade_impl="host"``) switched off."""
         cfg = self.cfg
-        if cfg.serve_fused == "off" or impl == "host":
+        if cfg.serve_fused == "off" or impl == "host" or self.mesh is not None:
             return False
         qb = (cfg.fold_query_block or cfg.query_block) if self.scorer.folded is not None \
             else cfg.query_block
@@ -350,12 +379,13 @@ class Matcher:
                 TL = min(TL, cap_tl)
             src = rem[sel]
             sel_d = torch.from_numpy(sel).to(dev)
-            out = self.fuzzy.decide(
+            out = self._decide(
+                self.fuzzy, self._fuzzy_copies,
                 torch.from_numpy(np.ascontiguousarray(queries.encoded[src, :TL])).to(dev),
                 torch.from_numpy(queries.lengths[src]).to(dev),
                 torch.from_numpy(np.ascontiguousarray(ts_enc_all[src, :TL])).to(dev),
                 torch.from_numpy(ts_len_all[src]).to(dev),
-                cand[sel_d], TL,
+                cand[sel_d], tl=TL,
             )
             m, bp, _ratio, over, ptl, pwl = (x.cpu().numpy() for x in out)
             matched[sel] = m & ~over
@@ -407,6 +437,7 @@ class Matcher:
             seconds to fetch their results)."""
             t_w = time.time()
             pend = []
+            rerank = self.rerank                  # built (and copied to the mesh) at first use
             for ti, TL in enumerate(buckets):
                 for wi, WL in enumerate(w_buckets):
                     if WL > TL:
@@ -415,9 +446,10 @@ class Matcher:
                     for s in range(0, len(sub), slab):
                         sl = sub[s : s + slab]
                         sl_d = torch.from_numpy(sl).to(dev)
-                        pend.append((sl, self.rerank.decide(
+                        pend.append((sl, self._decide(
+                            rerank, self._rerank_copies,
                             q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
-                            cand_todo[sl_d], TL, WL, narrow=narrow, col_lo=col_lo,
+                            cand_todo[sl_d], tl=TL, wl=WL, narrow=narrow, col_lo=col_lo,
                         )))
             t_d = time.time()
             cnt = np.zeros(n, np.int64)

@@ -156,14 +156,14 @@ def main() -> int:
     w = torch.ones(len(y), device=dev)
     m0 = torch.zeros(len(y), device=dev)
     kw = dict(depth=5, eta=0.1, beta=5.0, threshold=0.9, lambda_=1.0, min_child_weight=1.0)
-    gbt.boost_segment(bins_d, y_d, w, w, 1.0 - w, m0, n_rounds=2, **kw)
+    gbt.boost_segment([bins_d], y_d, w, w, 1.0 - w, m0, n_rounds=2, **kw)
     torch.cuda.synchronize()
     t = time.time()
-    gbt.boost_segment(bins_d, y_d, w, w, 1.0 - w, m0, n_rounds=10, **kw)
+    gbt.boost_segment([bins_d], y_d, w, w, 1.0 - w, m0, n_rounds=10, **kw)
     torch.cuda.synchronize()
     print(f"# boosting: 10 rounds on {tuple(bins_d.shape)} in {time.time() - t:.3f} s", flush=True)
     profiled(torch, "boosting, 10 rounds",
-             lambda: gbt.boost_segment(bins_d, y_d, w, w, 1.0 - w, m0, n_rounds=10, **kw))
+             lambda: gbt.boost_segment([bins_d], y_d, w, w, 1.0 - w, m0, n_rounds=10, **kw))
     N, F = bins_d.shape
     g = torch.randn(N, device=dev)
     for n_nodes in (1, 16):
@@ -183,9 +183,9 @@ def main() -> int:
             end.synchronize()
             return start.elapsed_time(end) / 10
 
-        gq, unit = gbt._quantize(g, N * F)
+        (gq,), unit = gbt._quantize([g], N * F)
         srcq = gq[:, None].expand(N, F).reshape(-1)
-        fixed = timed(lambda: gbt._segment_sum(key, srcq, unit, n_seg))
+        fixed = timed(lambda: gbt._segment_sum([key], [srcq], unit, n_seg))
         atomics = timed(lambda: torch.zeros(n_seg, device=dev).index_add_(0, key, src))
         ordered = timed(lambda: torch.zeros(n_seg, device=dev).index_put_((key,), src, accumulate=True))
         print(f"# level histogram of {N * F} keys into {n_nodes} node(s) x {F} x 256 bins: "

@@ -192,9 +192,12 @@ def test_jax_format_index_is_rebuilt_not_read(dirs, tmp_path, capsys, monkeypatc
 
 @pytest.mark.parametrize("verb", ["build-index", "generate-predictions", "train-model", "serve"])
 def test_devices_other_than_one_fail_with_the_sharding_message(dirs, capsys, monkeypatch, verb):
+    """A mesh of more cards than the machine has fails with ``make_mesh``'s
+    message (the mesh itself: ``tests/test_torch_sharded_train.py``)."""
     monkeypatch.setattr(pconfig, "_DEFAULT", dirs[1])
-    assert pcli.main([verb, "--devices", "2", "--device", "cpu"]) == 1
-    assert "sharding over several devices is not ported yet" in capsys.readouterr().err
+    n = torch.cuda.device_count() + 1
+    assert pcli.main([verb, "--devices", str(n), "--platform", "cuda", "--device", "cpu"]) == 1
+    assert f"Error: --devices {n}: need {n} devices, have {n - 1}" in capsys.readouterr().err
 
 
 def test_train_model_and_stage_run(dirs, tmp_path, capsys, monkeypatch):

@@ -519,3 +519,113 @@ def test_fused_capture_failure_raises(serve_world, monkeypatch):
     with pytest.raises(RuntimeError):
         matcher.predict(TitleSet.from_titles(queries.titles[:3], config=matcher.cfg))
     assert not matcher._fused_engine()._graphs
+
+
+# ------------------------------------------------------------------- mesh
+
+@pytest.fixture(scope="module")
+def mesh_world():
+    """4,096 titles in tiles of 2,048: on one card one index of two tiles, on
+    a two-shard mesh one tile a shard, each with real titles (kernel A's
+    tile, so its windows are the single card's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mesh's shards launch the port's kernels")
+    from doppelspeller_tpu_torch.config import Config
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, truth, queries, _ = make_synthetic_world(4096, 512, config=Config(data_path="data"))
+    return cfg.with_(title_block=2048), truth, queries
+
+
+def _one_card_mesh(n=2):
+    from doppelspeller_tpu_torch.parallel.sharded import Mesh
+
+    return Mesh((torch.device("cuda", 0),) * n)
+
+
+@pytest.mark.parametrize("score_dtype", ["bfloat16", "float32"])
+def test_two_shards_of_one_card_are_the_single_card_bit_for_bit(mesh_world, score_dtype):
+    """Exact retrieval (kernel A gathering, once per shard and block) and
+    the whole predict: scores, positions, ids, stages and predictions bit
+    for bit."""
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(score_dtype=score_dtype, cascade_impl="device")
+    model = GBTModel.load(str(MODEL))
+    one = Matcher(cfg, truth, model, device="cuda", use_index_checkpoint=False)
+    mesh = Matcher(cfg, truth, model, mesh=_one_card_mesh(), use_index_checkpoint=False)
+    assert mesh.scorer.exact is not None and mesh.scorer.tb == one.scorer.exact.tb == 2048
+    a0, g0 = jk.score_window_select.launches, jk.score_window_select.gathered
+    v2, p2 = mesh.scorer.topk(queries)
+    n_blocks = len(queries) // cfg.query_block
+    assert jk.score_window_select.launches - a0 >= 2 * n_blocks
+    assert jk.score_window_select.gathered - g0 == jk.score_window_select.launches - a0
+    v1, p1 = one.scorer.topk(queries)
+    assert np.array_equal(_bits(v1), _bits(v2)) and np.array_equal(p1, p2)
+    r1, r2 = one.predict(queries), mesh.predict(queries)
+    assert np.array_equal(r1.match_title_id, r2.match_title_id) and np.array_equal(r1.stage, r2.stage)
+    assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))
+
+
+def test_folded_mesh_dominates_the_single_card(mesh_world):
+    """Each shard rescores its own coarse top-k', a superset of the single
+    card's coarse candidates: every row's i-th score is at least the single
+    card's."""
+    from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+    from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(retrieval_mode="folded")
+    index = build_truth_index(truth, cfg)
+    a0 = jk.score_window_select.launches
+    mesh = ShardedJaccardScorer(index, _one_card_mesh(), cfg, truth=truth)
+    v2, _ = mesh.topk(queries)
+    assert jk.score_window_select.launches - a0 == 2 * len(queries) // cfg.query_block
+    v1, _ = JaccardScorer(index, cfg, "cuda", truth).topk(queries)
+    assert (v2 >= v1).all()
+
+
+def test_data_parallel_train_gbt_on_the_card_is_one_card_bit_for_bit(cuda):
+    from doppelspeller_tpu_torch.models import gbt
+
+    X, y = _train_data(6001, 7)
+    Xe, ye = _train_data(999, 8)
+    params = gbt.GBTParams(num_boost_round=30, early_stopping_rounds=30)
+    a = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, device=cuda)
+    b = gbt.train_gbt(X, y, Xe, ye, params, verbose_every=0, mesh=_one_card_mesh(3))
+    assert a.num_trees == b.num_trees == 30 and a.history == b.history
+    for name in ("feat", "split_bin", "missing_left", "value", "is_leaf", "threshold"):
+        assert getattr(a, name).tobytes() == getattr(b, name).tobytes(), name
+
+
+def test_mesh_of_two_cards_launches_each_shard_on_its_card(mesh_world):
+    """With cuda:0 current, a shard on cuda:1 launches there (the launch
+    makes its tensors' card current): kernel A on cuda:1 equals its plain
+    version, and a two-card mesh is the single card, bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.parallel.sharded import make_mesh
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    rows, w, sums, maxint = _a_inputs(11, 64, 512, 2, 8192, 8000, d1)
+    got = jk.score_window_select(rows, w, sums, maxint, 8000, tb=2048, W=16, folds=2,
+                                 score_dtype="float32")
+    ref = jk.score_window_select_plain(rows, w, sums, maxint, 8000, tb=2048, W=16, folds=2)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    cfg, truth, queries = mesh_world
+    model = GBTModel.load(str(MODEL))
+    r1 = Matcher(cfg, truth, model, device="cuda", use_index_checkpoint=False).predict(queries)
+    mesh = Matcher(cfg, truth, model, mesh=make_mesh(2), use_index_checkpoint=False)
+    assert mesh._fuzzy_copies[d1].t_enc.device == d1
+    r2 = mesh.predict(queries)
+    assert np.array_equal(r1.match_title_id, r2.match_title_id)
+    assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))

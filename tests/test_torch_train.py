@@ -233,7 +233,8 @@ def test_build_tree_ignores_the_order_of_rows(seed):
     def level0(rows):
         key = torch.from_numpy((bins[rows].astype(np.int64) + np.arange(f) * pgbt.NB).reshape(-1))
         v = torch.from_numpy(np.repeat(g[rows], f))
-        fixed = pgbt._segment_sum(key, *pgbt._quantize(v, n * f), f * pgbt.NB)
+        (q,), unit = pgbt._quantize([v], n * f)
+        fixed = pgbt._segment_sum([key], [q], unit, f * pgbt.NB)
         return fixed, torch.zeros(f * pgbt.NB).index_add_(0, key, v)
 
     (fa, f32a), (fb, f32b) = level0(np.arange(n)), level0(perm)
