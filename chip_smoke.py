@@ -103,7 +103,8 @@ Phases, each printing its seconds; any failure exits non-zero:
     launches and merges of two cards.  The exact 150k world (default
     config; two shards of 98,304 padded titles, tb 2,048 like the single
     card's 163,840, so the windows line up): ``Matcher(mesh=)``
-    construction seconds, one untimed predict (every call of A and B held
+    construction seconds (built on the mesh, each shard's ids, frequencies,
+    sums and matrices on its device), one untimed predict (every call of A and B held
     against the plain version), then timed predicts in turns with a
     single-card Matcher (single, mesh, mesh, single), where A must launch
     twice per block, every launch gathering; ``scorer.topk`` must equal the
@@ -132,7 +133,8 @@ Phases, each printing its seconds; any failure exits non-zero:
     cut from the example set's 10,000 that keeps the phase near a minute;
     the last 10,000 as the test rows and their actuals).  In-process through
     ``cli.main``, each verb with the launch counts set to 0 just before it:
-    ``build-index``; ``train-model`` with the default Config (1,000 rounds,
+    ``build-index`` (the device build on the card, which must log it; its
+    seconds printed with the card's name and power limit); ``train-model`` with the default Config (1,000 rounds,
     early stopping at 50); ``generate-predictions`` (it must load the
     checkpoint); ``get-predictions-accuracy`` (accuracy from its counts at
     least 0.80); ``build-index --devices 1`` and ``generate-predictions
@@ -156,6 +158,20 @@ Phases, each printing its seconds; any failure exits non-zero:
     and E nowhere; every call of A and B (A at serve's unions of 128-512
     rows too) is held against the plain version as in the train phase (in
     ``serve``, the calls of the run op by op before each capture).
+16. construction (run after the exact world is made, before the exact
+    main path): on the folded 500k world (default config) and the exact
+    150k world, ``Matcher`` built four times in turns with the host and
+    the device index build (``index_build_impl`` "host", "device",
+    "device", "host").  Each build prints its seconds by the host clock
+    after a synchronize (``Matcher.init_seconds``: the index's ids, ``df``
+    and sums; the retrieval engine's packed matrix, or its two folded
+    matrices and trigram list; the rest), its peak device memory and the
+    memory it keeps after construction, with the card's name and power
+    limit.  Every index array and every buffer of the retrieval engine
+    must equal the first build's bit for bit, and so must ``scorer.topk``
+    on the first 2,048 queries; a device build may keep no more than a
+    host build.  The main paths'
+    and the mesh phase's Matchers take the device build (``"auto"``).
 
 The line before the last is a JSON object with every kernel's route,
 source, launches in the path that carries it and in the mesh phase, error, times, bound (the
@@ -968,6 +984,8 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
     t = time.time()
     matcher = Matcher(cfg, truth, model, device="cuda")
     torch.cuda.synchronize()
+    print(f"# {label} Matcher init_seconds {json.dumps(matcher.init_seconds)} "
+          f"({matcher.index.built_on} index build)", flush=True)
     phase(f"{label}_matcher_init", t)
     t = time.time()
     with untimed or contextlib.nullcontext():
@@ -1148,6 +1166,74 @@ def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
     return stats, (fs, probe)
 
 
+CONSTRUCTION_QUERIES = 2048
+INDEX_ARRAYS = ("df", "idf", "sums", "trigrams", "title_ids")
+
+
+def construction_path(torch, Matcher, model, world, label, smi):
+    """``Matcher`` construction with the host and the device index build in
+    turns (host, device, device, host) on one world (see the module
+    docstring, phase 16): each build's seconds by piece, its peak device
+    memory, and every array of its index and retrieval engine and
+    ``scorer.topk`` on the first queries equal to the first build's bit for
+    bit.  Returns the stats."""
+    cfg, truth, queries = world
+    rows = np.arange(min(CONSTRUCTION_QUERIES, len(queries)))
+    ref, stats = None, {"card": smi, "host": [], "device": []}
+    for impl in ("host", "device", "device", "host"):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t = time.time()
+        m = Matcher(cfg.with_(index_build_impl=impl), truth, model, device="cuda",
+                    use_index_checkpoint=False)
+        torch.cuda.synchronize()
+        total = time.time() - t
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        kept = (torch.cuda.memory_allocated() - resident) / 1e9
+        if m.index.built_on != impl:
+            raise AssertionError(f"{label}: index_build_impl={impl!r} did not take the {impl} build")
+        engine = m.scorer.exact or m.scorer.folded
+        got = {"index": {f: getattr(m.index, f) for f in INDEX_ARRAYS},
+               "scalars": tuple(getattr(m.index, f) for f in ("num_titles", "padded_titles",
+                                                              "max_idf", "content_hash")),
+               "buffers": {k: v.contiguous().view(torch.uint8) for k, v in engine.named_buffers()},
+               "topk": m.scorer.topk(queries, rows=rows)}
+        if ref is None:
+            ref = got
+        else:
+            bad = [f for f in INDEX_ARRAYS if not bits_equal(ref["index"][f], got["index"][f])]
+            bad += [k for k, v in ref["buffers"].items() if not torch.equal(v, got["buffers"][k])]
+            if got["scalars"] != ref["scalars"] or got["buffers"].keys() != ref["buffers"].keys():
+                bad.append("scalars or buffer names")
+            if not (bits_equal(*(r["topk"][0] for r in (ref, got)))
+                    and bits_equal(*(r["topk"][1] for r in (ref, got)))):
+                bad.append(f"topk on {len(rows)} queries")
+            if bad:
+                raise AssertionError(f"{label}: the {impl} build differs from the host build in {bad}")
+        piece = dict(m.init_seconds, total=total, peak_gb=peak, kept_gb=kept)
+        stats[impl].append(piece)
+        print(f"# construction {label} ({impl} build): Matcher {total:.3f} s = load "
+              f"{piece['load']:.3f} + index (ids, df, sums) {piece['index']:.3f} + retrieval "
+              f"({'packed' if m.scorer.exact else 'folded x2, trigram list'}) "
+              f"{piece['retrieval']:.3f} + rest {piece['rest']:.3f}; device memory peak "
+              f"{peak:.3f} GB, kept after construction {kept:.6f} GB, above {resident / 1e9:.3f} "
+              f"resident; on {smi}", flush=True)
+        del m, engine, got
+    host_kept = max(p["kept_gb"] for p in stats["host"])
+    if any(p["kept_gb"] > host_kept for p in stats["device"]):
+        raise AssertionError(f"{label}: a device-built Matcher keeps more on the card than a "
+                             f"host-built one ({[p['kept_gb'] for p in stats['device']]} GB against "
+                             f"{host_kept} GB)")
+    print(f"# construction {label}: host and device builds equal bit for bit (index arrays, "
+          f"{len(ref['buffers'])} engine buffers, top-{ref['topk'][0].shape[1]} of {len(rows)} "
+          f"queries); index seconds host "
+          f"{', '.join(f'{p['index']:.3f}' for p in stats['host'])}, device "
+          f"{', '.join(f'{p['index']:.3f}' for p in stats['device'])}", flush=True)
+    return stats
+
+
 def mesh_path(torch, counters, smi, model, refs):
     """The title-sharded mesh (``parallel/sharded.py``) on two shards of the
     one card (see the module docstring, phase 14).  ``refs`` holds the
@@ -1212,7 +1298,8 @@ def mesh_path(torch, counters, smi, model, refs):
     if sc.exact is None or sc.tb != refs["exact_tb"] or any(o % sc.tb for o in sc.offsets):
         raise AssertionError(f"the exact mesh's windows are not the single card's: tb {sc.tb} "
                              f"(single {refs['exact_tb']}), offsets {sc.offsets}")
-    print(f"# mesh exact 150k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s ({sc.ntp_local} "
+    print(f"# mesh exact 150k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s, init_seconds "
+          f"{json.dumps(m.init_seconds)} ({sc.ntp_local} "
           f"padded titles a shard, tb {sc.tb}, W {W}, a packed shard "
           f"{sc.exact[0].packed.numel() / 1e6:.1f} MB) on {smi}", flush=True)
     with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
@@ -1259,8 +1346,8 @@ def mesh_path(torch, counters, smi, model, refs):
     sc = m.scorer
     if sc.folded is None:
         raise AssertionError("the 500k mesh did not take folded retrieval")
-    print(f"# mesh folded 500k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s "
-          f"({sc.ntp_local} titles a shard, Mc {sc.folded[0].mc.numel() / 1e6:.1f} MB a shard, "
+    print(f"# mesh folded 500k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s, init_seconds "
+          f"{json.dumps(m.init_seconds)} ({sc.ntp_local} titles a shard, Mc {sc.folded[0].mc.numel() / 1e6:.1f} MB a shard, "
           f"ltw {sc.folded[0].ltw}) on {smi}", flush=True)
     with Spy(fold, "score_window_select") as spy_f, Spy(features, "window_best") as spy_b:
         _, lf, untimed_s = run(lambda: m.predict(queries))
@@ -1511,9 +1598,14 @@ def run_cli_path(torch, counters, smi):
                     print(f"# cli {argv[0]}: kernel checks {time.time() - t1:.3f} s", flush=True)
                 return out, err, launches
 
+            records.messages.clear()
             out, _, _ = verb(["build-index"], spy=False)
             if f"index saved to {cfg.index_path} ({CLI_TITLES} titles" not in out:
                 raise AssertionError(f"build-index printed {out!r}")
+            if not any("device build on cuda" in m for m in records.messages):
+                raise AssertionError(f"build-index did not take the device build: {records.messages}")
+            print(f"# cli build-index: the device build, {stats['seconds']['build-index']:.3f} s "
+                  f"on {smi}", flush=True)
 
             with Spy(trainer, "train_model") as spy_t:
                 out, _, lt = verb(["train-model"])
@@ -1852,6 +1944,16 @@ def main() -> int:
     cfg_x, truth_x, queries_x, actual_x = make_synthetic_world(N_TITLES_EXACT, N_QUERIES, seed=SEED,
                                                                config=cfg0)
     phase("exact_world", t)
+
+    # ---- construction: the host and the device index build in turns ----
+    t = time.time()
+    construction = {label: construction_path(torch, Matcher, model, world, label, smi)
+                    for label, world in (("folded 500k", (cfg, truth, queries)),
+                                         ("exact 150k", (cfg_x, truth_x, queries_x)))}
+    print(f"# construction seconds and peak GB by build, in turns: {json.dumps(construction)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    phase("construction", t)
     exact, res_x, lx = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x, model,
                                      counters, ("A", "B"), "exact")
     if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"]

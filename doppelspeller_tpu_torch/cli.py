@@ -100,7 +100,7 @@ def build_index(args) -> None:
         scorer.save(cfg.index_path)
         index = scorer.index
     else:
-        index = build_truth_index(truth, cfg)
+        index = build_truth_index(truth, cfg, args.device)
         index.save(cfg.index_path)
     _echo(f"index saved to {cfg.index_path} "
           f"({index.num_titles} titles, {index.packed_nbytes / 1e6:.0f} MB packed)")

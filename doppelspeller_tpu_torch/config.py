@@ -2,15 +2,14 @@
 
 Field-for-field the JAX package's ``Config`` (same names, same defaults, same
 validation), so a configuration written for one package runs the other.  The
-port reads the fields on its path (retrieval, fuzzy, model stage, the cascade
-knobs, ``serve_fused`` and ``fuzzy_tile_cap``).  Fields that only shape the
-TPU programs are kept so configurations stay interchangeable, and the port
-ignores them:
+port reads the fields on its path (the index build, retrieval, fuzzy, model
+stage, the cascade knobs, ``serve_fused`` and ``fuzzy_tile_cap``).  Fields
+that only shape the TPU programs are kept so configurations stay
+interchangeable, and the port ignores them:
 
-``window_impl``, ``retrieval_impl``, ``index_build_impl``,
-``topk_recall_target``, ``fold_recall_target`` (the port's top-k is exact),
-``dispatch_blocks``, ``pallas_union_chunk``, ``pair_block``,
-``rerank_chunk_cap``, ``mesh_axis``.
+``window_impl``, ``retrieval_impl``, ``topk_recall_target``,
+``fold_recall_target`` (the port's top-k is exact), ``dispatch_blocks``,
+``pallas_union_chunk``, ``pair_block``, ``rerank_chunk_cap``, ``mesh_axis``.
 """
 
 from __future__ import annotations
@@ -105,7 +104,9 @@ class Config:
     folded_min_titles: int = 200_000
     fold_query_block: int = 0            # 0 → query_block
     fold_select_window: int = 0          # 0 → max(tb // 128, 1)
-    index_build_impl: str = "auto"       # ignored by the port
+    # "auto" → the device build on a CUDA device, the host build on the
+    # CPU; "device" / "host" force one (ngram_index.index_build_impl)
+    index_build_impl: str = "auto"
     topk_recall_target: float = 0.99     # ignored: the port's select is exact
     query_block: int = 128
     max_query_trigrams: int = 64

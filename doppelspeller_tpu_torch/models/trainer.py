@@ -238,9 +238,9 @@ def train_model(
     if scorer is None and mesh is not None:
         from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
 
-        scorer = ShardedJaccardScorer(build_truth_index(truth, cfg), mesh, cfg)
+        scorer = ShardedJaccardScorer(build_truth_index(truth, cfg, dev), mesh, cfg)
     elif scorer is None:
-        scorer = JaccardScorer(build_truth_index(truth, cfg), cfg, dev)
+        scorer = JaccardScorer(build_truth_index(truth, cfg, dev), cfg, dev)
     timings["setup_seconds"] = clock() - t0
 
     rng = random.Random(cfg.seed)

@@ -20,8 +20,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from doppelspeller_tpu_torch.config import N_TEXT_CHARS, TRIGRAM_VOCAB_SIZE, Config
+from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE, Config
 from doppelspeller_tpu_torch.device import resolve_device
+from doppelspeller_tpu_torch.ops.index_device import build_shard, ids_width
 from doppelspeller_tpu_torch.ops.jaccard_kernels import score_window_select, select_topk_windowed
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
@@ -67,19 +68,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _title_trigrams(encoded: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-    """int64[nt, L_eff-2] sorted unique trigram ids per title, V in unused slots."""
-    return np.minimum(T.trigram_ids_matrix(encoded, lengths), V).astype(np.int64)
-
-
-def build_folded_matrix(encoded: np.ndarray, lengths: np.ndarray, fold_map: np.ndarray,
-                        fold_dim: int, ntp: int, device) -> torch.Tensor:
-    """uint8[fold_dim, ntp/8] folded occupancy bits on ``device``: bit t % 8
-    of byte t // 8 in row c is set when title t holds a trigram of bucket c."""
+def build_folded_matrix(ids: torch.Tensor, fold_map: np.ndarray, fold_dim: int,
+                        ntp: int) -> torch.Tensor:
+    """uint8[fold_dim, ntp/8] folded occupancy bits on the device of
+    ``ids`` (int32[nt, W] per-title trigram ids, V in unused slots; see
+    ``index_device.title_trigram_ids``): bit t % 8 of byte t // 8 in row c
+    is set when title t holds a trigram of bucket c."""
     C = fold_dim
-    ids = torch.from_numpy(_title_trigrams(encoded, lengths)).to(device)
+    device = ids.device
     fold = torch.from_numpy(fold_map.astype(np.int64)).to(device)
-    f = fold[ids]                                            # (nt, S), C = pad
+    f = fold[ids.long()]                                     # (nt, S), C = pad
     t = torch.arange(ids.shape[0], device=device)[:, None].expand_as(f)
     keep = f < C
     # one bit per (bucket, title): two trigrams of a title folding into one
@@ -92,26 +90,20 @@ def build_folded_matrix(encoded: np.ndarray, lengths: np.ndarray, fold_map: np.n
     return packed.to(torch.uint8).reshape(C, ntp // 8)
 
 
-def build_trigram_list_matrix(encoded: np.ndarray, lengths: np.ndarray, ntp: int,
-                              device, ltw: Optional[int] = None) -> Tuple[torch.Tensor, int]:
-    """(int32[ntp, Ltw] on ``device``, Ltw): each title's trigram ids, sorted,
-    with V in repeated and unused slots and in padding titles.  ``ltw``
+def build_trigram_list_matrix(ids: torch.Tensor, ntp: int,
+                              ltw: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """(int32[ntp, Ltw] on the device of ``ids``, Ltw): each title's row of
+    ``ids`` (``index_device.title_trigram_ids``: sorted, each repeat
+    replaced by V in place, the reference's layout; membership is all the
+    rescore reads), V in the slots past it and in padding titles.  ``ltw``
     forces the width (a mesh's shards take the width of all the titles);
-    by default it is that of these titles."""
-    nt = encoded.shape[0]
-    l_eff = int(lengths.max(initial=3)) if nt else 3
+    by default it is that of ``ids`` rounded up to a multiple of 8."""
+    nt, width = ids.shape
     if ltw is None:
-        ltw = max(_round_up(l_eff - 2, 8), 8)
-    out = np.full((ntp, ltw), V, dtype=np.int32)
-    # the reference's layout: ids sorted with V for invalid positions, then
-    # each repeat replaced by V in place (membership is all the rescore reads)
-    text = T._FEATURE_TO_TEXT[encoded[:, :l_eff]].astype(np.int64)
-    ids = text[:, :-2] * N_TEXT_CHARS ** 2 + text[:, 1:-1] * N_TEXT_CHARS + text[:, 2:]
-    valid = np.arange(l_eff - 2)[None, :] <= (lengths[:, None] - 3)
-    ids = np.sort(np.where(valid, ids, V), axis=1)
-    ids[:, 1:] = np.where(ids[:, 1:] == ids[:, :-1], V, ids[:, 1:])
-    out[:nt, : ids.shape[1]] = ids
-    return torch.from_numpy(out).to(device), ltw
+        ltw = max(_round_up(width, 8), 8)
+    out = torch.full((ntp, ltw), V, dtype=torch.int32, device=ids.device)
+    out[:nt, :width] = ids
+    return out, ltw
 
 
 @dataclass
@@ -199,7 +191,9 @@ class FoldedEngine(nn.Module):
 
     def __init__(self, index, truth: TitleSet, cfg: Config, device="cuda", *, tb: int,
                  ltw: Optional[int] = None):
-        """``ltw``: the width of the trigram lists (default: that of these
+        """The folded matrices and the trigram lists are built from one set
+        of per-title ids, computed on the device from ``truth``'s encodings.
+        ``ltw``: the width of the trigram lists (default: that of these
         titles; see ``build_trigram_list_matrix``)."""
         super().__init__()
         device = resolve_device(device)
@@ -211,16 +205,13 @@ class FoldedEngine(nn.Module):
         self.W = int(cfg.fold_select_window) or max(tb // 128, 1)
         self.nt = index.num_titles
         ntp = index.padded_titles
+        ids, _ = build_shard(truth.encoded, truth.lengths, device, ids_width(truth.lengths))
         fold_maps = [build_fold_map(index.df, self.C, seed=f) for f in range(self.folds)]
-        mc = torch.cat([
-            build_folded_matrix(truth.encoded, truth.lengths, fm, self.C, ntp, device)
-            for fm in fold_maps
-        ], dim=0)
+        mc = torch.cat([build_folded_matrix(ids, fm, self.C, ntp) for fm in fold_maps], dim=0)
         self.register_buffer("mc", mc)
         self.register_buffer("fold_ext", torch.from_numpy(np.stack(fold_maps).astype(np.int64)).to(device))
         if self.kprime > 0:
-            tl, self.ltw = build_trigram_list_matrix(truth.encoded, truth.lengths, ntp, device,
-                                                     ltw=ltw)
+            tl, self.ltw = build_trigram_list_matrix(ids, ntp, ltw=ltw)
         else:
             tl, self.ltw = None, 0
         self.register_buffer("tl", tl)

@@ -6,11 +6,15 @@ sums) and the per-title trigram ids.  The bit-packed (V, ntp/8) occupancy
 matrix is built only when the exact retrieval engine asks for it
 (``build_packed_matrix``): at 500k titles it takes 3.3 GB, and the folded
 path never reads it (it builds its own folded matrix, ``ops/fold.py``).
+
+``build_truth_index`` resolves ``index_build_impl`` as the JAX package
+does: on a CUDA device ``"auto"`` takes the device build
+(``ops/index_device.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -69,6 +73,8 @@ class TruthIndex:
     trigrams: np.ndarray    # int32[nt, W] per-title sorted unique trigram ids,
                             #   BIG_TRIGRAM in unused slots
     content_hash: str = ""  # title_content_hash of the truth titles
+    # the build that made the index, "host" or "device" ("" after a load)
+    built_on: str = field(default="", compare=False)
 
     @property
     def vocab_size(self) -> int:
@@ -106,23 +112,58 @@ class TruthIndex:
         return np.where(self.df > 0, self.idf, np.float32(self.max_idf)).astype(np.float32)
 
 
-def build_truth_index(truth: TitleSet, config: Config) -> TruthIndex:
+def _or_default(device) -> torch.device:
+    """``device``, or for None the default device, as the JAX package builds
+    on its default backend: the card where there is one, else the CPU."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def index_build_impl(config: Config, device=None) -> str:
+    """"device" or "host": the build ``build_truth_index`` takes on
+    ``device`` under ``config.index_build_impl``, resolved as the JAX
+    package resolves it on its backend: ``"auto"`` the device build on a
+    CUDA device and the host build on the CPU, ``"device"`` the device
+    build on any device, anything else the host build.  ``device=None``
+    is the default device (``_or_default``)."""
+    impl = config.index_build_impl
+    if impl == "auto":
+        return "device" if _or_default(device).type == "cuda" else "host"
+    return "device" if impl == "device" else "host"
+
+
+def build_truth_index(truth: TitleSet, config: Config, device=None) -> TruthIndex:
     """IDF = ln(N/df) over per-title-unique trigrams; per-title IDF sums
-    accumulated in float64 and stored as float32."""
+    added in float64, left to right over each title's sorted ids, and
+    stored as float32.
+
+    Where ``index_build_impl`` resolves to "device" on ``device`` (None:
+    the card where there is one, else the CPU) the index is built there
+    (``index_device.build_truth_index_device``), bit for bit this host
+    build."""
+    device = _or_default(device)
+    if index_build_impl(config, device) == "device":
+        from doppelspeller_tpu_torch.ops.index_device import build_truth_index_device
+
+        return build_truth_index_device(truth, config, device)
     nt = len(truth)
     ntp = _round_up(max(nt, config.title_block), config.title_block)
     ids = truth.trigram_ids()                                # (nt, W), BIG pad
     valid = ids != T.BIG_TRIGRAM
-    df = np.bincount(ids[valid], minlength=TRIGRAM_VOCAB_SIZE).astype(np.int32)
+    df = T.trigram_df(ids)
     idf = T.idf_table_from_df(df, nt)
     max_idf = float(idf.max()) if nt > 0 else 0.0
     w = np.where(valid, idf[np.minimum(ids, TRIGRAM_VOCAB_SIZE - 1)].astype(np.float64), 0.0)
+    acc = np.zeros(nt, dtype=np.float64)
+    for c in range(w.shape[1]):            # the device build's order
+        acc += w[:, c]
     sums = np.zeros(ntp, dtype=np.float32)
-    sums[:nt] = w.sum(axis=1).astype(np.float32)
+    sums[:nt] = acc.astype(np.float32)
     return TruthIndex(
         idf=idf, df=df, sums=sums, title_ids=truth.ids.copy(), num_titles=nt,
         padded_titles=ntp, max_idf=max_idf, trigrams=ids,
-        content_hash=title_content_hash(truth.encoded, truth.lengths),
+        content_hash=title_content_hash(truth.encoded, truth.lengths), built_on="host",
     )
 
 

@@ -48,13 +48,9 @@ from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.models.gbt import build_tree_shards, margin_grad_hess, split_rows
 from doppelspeller_tpu_torch.ops.fold import FoldedEngine, plan_id_blocks
+from doppelspeller_tpu_torch.ops.index_device import build_shard, ids_width, index_from_shards
 from doppelspeller_tpu_torch.ops.jaccard import ExactEngine, JaccardScorer
-from doppelspeller_tpu_torch.ops.ngram_index import (
-    TruthIndex,
-    build_truth_index,
-    checkpoint_holds,
-    plan_query_blocks,
-)
+from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, checkpoint_holds, plan_query_blocks
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
 LOGGER = logging.getLogger(__name__)
@@ -270,9 +266,23 @@ class ShardedJaccardScorer(JaccardScorer):
 
 
 def build_sharded_index(truth: TitleSet, mesh: Mesh, config: Config) -> ShardedJaccardScorer:
-    """The truth index (``build_truth_index``) and its scorer on ``mesh``:
-    every shard's packed matrix is built on its own device from its rows."""
-    return ShardedJaccardScorer(build_truth_index(truth, config), mesh, config, truth=truth)
+    """The truth index and its scorer, built on ``mesh``: each shard's ids,
+    document frequencies and sums on its own device from its slice of the
+    encodings (``index_device.build_shard``, ``shard_sums``), the
+    frequencies summed on the first device.  The ids are dropped once the
+    index is downloaded; each shard's engine builds its matrices on its
+    device as ``ShardedJaccardScorer`` does.  ``.index`` equals
+    ``build_truth_index``'s bit for bit; its ids keep the width of all the
+    titles."""
+    nt, tb, D = len(truth), config.title_block, mesh.size
+    ntp_local = _round_up(_round_up(max(nt, tb), tb), D * tb) // D
+    width = ids_width(truth.lengths)
+    shards = [build_shard(truth.encoded[lo : lo + ntp_local], truth.lengths[lo : lo + ntp_local],
+                          dev, width)
+              for lo, dev in zip(range(0, D * ntp_local, ntp_local), mesh.devices)]
+    index = index_from_shards(truth, config, shards)
+    del shards
+    return ShardedJaccardScorer(index, mesh, config, truth=truth)
 
 
 # ------------------------------------------------------- data-parallel GBT

@@ -59,6 +59,7 @@ from doppelspeller_tpu_torch.ops.rerank import RerankEngine
 from doppelspeller_tpu_torch.parallel.sharded import (
     Mesh,
     ShardedJaccardScorer,
+    build_sharded_index,
     replicate,
     row_parallel,
 )
@@ -132,12 +133,15 @@ class Matcher:
     the index checkpoint at ``config.index_path`` is used when its count,
     ids and content hash match the truth; a checkpoint that does not match,
     or that this package cannot read (the JAX package's among them), is
-    rebuilt with a warning.  ``model`` defaults to ``config.model_path``,
-    read at the first use of stage 3.
+    rebuilt with a warning.  An index is built on ``device`` or on the
+    host as ``config.index_build_impl`` resolves (``build_truth_index``).
+    ``model`` defaults to ``config.model_path``, read at the first use of
+    stage 3.  ``init_seconds`` splits the construction's seconds.
 
     ``mesh`` (``parallel.sharded.Mesh``; ``device`` is then its first
-    device): the index (the checkpoint's, the given one, or one built) is
-    sharded over the mesh's title axis, and the fuzzy and model stages run
+    device): the index (the checkpoint's or the given one) is sharded over
+    the mesh's title axis, or, without one, built there shard by shard
+    (``build_sharded_index``), and the fuzzy and model stages run
     data-parallel over the rows, on one copy of their engine per distinct
     device.  A mesh never takes the one-dispatch path."""
 
@@ -148,14 +152,31 @@ class Matcher:
         self.cfg = config = config or get_config()
         self.mesh = mesh
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        devices = mesh.distinct if mesh is not None else (self.device,)
+
+        def clock() -> float:
+            for d in devices:
+                synchronize(d)
+            return time.time()
+
+        t0 = clock()
         self.truth = truth = truth or load_ground_truth(config)
         if index is None and use_index_checkpoint and os.path.exists(config.index_path):
             index = self._checkpoint(config.index_path, truth, on_mesh=mesh is not None)
-        self.index = index or build_truth_index(truth, config)
-        if mesh is None:
-            self.scorer = JaccardScorer(self.index, config, self.device, truth)
+        t1 = clock()
+        if mesh is not None and index is None:
+            # built on the mesh, each shard on its own device
+            self.scorer = build_sharded_index(truth, mesh, config)
+            self.index = self.scorer.index
+            t2 = clock()
         else:
-            self.scorer = ShardedJaccardScorer(self.index, mesh, config, truth=truth)
+            self.index = index or build_truth_index(truth, config, self.device)
+            t2 = clock()
+            if mesh is None:
+                self.scorer = JaccardScorer(self.index, config, self.device, truth)
+            else:
+                self.scorer = ShardedJaccardScorer(self.index, mesh, config, truth=truth)
+        t3 = clock()
         # exact-match lookup: duplicate transformed titles → last id wins
         self.reverse: Dict[str, int] = {
             t: int(i) for t, i in zip(truth.transformed, truth.ids)
@@ -171,6 +192,12 @@ class Matcher:
         self._fuzzy_copies = replicate(self.fuzzy, mesh) if mesh is not None else None
         self._word_counts: Optional[np.ndarray] = None
         self.set_model(model)
+        # construction seconds by the host clock after a synchronize: the
+        # truth index (the truth and checkpoint reads under "load"), the
+        # retrieval engine's device matrices (on a mesh built here, with
+        # the index: "retrieval" is then 0), and the rest
+        self.init_seconds = {"load": t1 - t0, "index": t2 - t1, "retrieval": t3 - t2,
+                             "rest": clock() - t3}
 
     @staticmethod
     def _checkpoint(path: str, truth: TitleSet, on_mesh: bool = False) -> Optional[TruthIndex]:

@@ -6,6 +6,7 @@ fast path is not carried; the tests hold this module equal to it).
 
 from __future__ import annotations
 
+import math
 import re
 import unicodedata
 from collections import Counter
@@ -13,7 +14,7 @@ from typing import Iterable, List, Sequence
 
 import numpy as np
 
-from doppelspeller_tpu_torch.config import ALPHABET, N_TEXT_CHARS
+from doppelspeller_tpu_torch.config import ALPHABET, N_TEXT_CHARS, PAD_CODE, TRIGRAM_VOCAB_SIZE
 
 MAX_CHARACTERS = 255
 N_GRAMS = 3
@@ -24,6 +25,7 @@ _SPACES_RE = re.compile(r" +")
 
 # char -> uint8 code ('-'=0 pad, ' '=1, 'a'..'z'=2..27, '0'..'9'=28..37)
 CHAR_ENCODING = {ch: i for i, ch in enumerate(ALPHABET)}
+CHAR_DECODING = {i: ch for ch, i in CHAR_ENCODING.items()}
 
 # uint8 code -> trigram text-char id (space=0, a..z=1..26, 0..9=27..36);
 # the pad code maps to -1
@@ -67,12 +69,32 @@ def transform_titles(titles: Iterable[str], max_characters: int = MAX_CHARACTERS
     return [transform_title(t, max_characters, n_grams) for t in titles]
 
 
+def get_n_grams(title: str, n: int = N_GRAMS) -> set:
+    """Set of all character n-grams of ``title``."""
+    return {title[i : i + n] for i in range(len(title) - n + 1)}
+
+
 def get_words_counter(words_lists: Iterable[Sequence[str]]) -> Counter:
     """Document-frequency counter: each word counted once per title."""
     counter: Counter = Counter()
     for words in words_lists:
         counter.update(set(words))
     return counter
+
+
+def idf_word(word: str, words_counter: Counter, number_of_titles: int) -> float:
+    """Natural-log inverse document frequency of ``word``."""
+    return math.log(number_of_titles / words_counter[word])
+
+
+def encode_title(title: str, max_characters: int = MAX_CHARACTERS) -> np.ndarray:
+    """uint8[max_characters] char codes, zero-padded."""
+    return encode_titles([title], max_characters)[0]
+
+
+def decode_title(codes: np.ndarray) -> str:
+    """The title of ``encode_title``'s codes (pads dropped)."""
+    return "".join(CHAR_DECODING[int(c)] for c in codes if c != PAD_CODE)
 
 
 def encode_titles(titles: Sequence[str], max_characters: int = MAX_CHARACTERS) -> np.ndarray:
@@ -117,6 +139,17 @@ def trigram_ids_matrix(encoded: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     ids = np.where(dup, np.int64(BIG_TRIGRAM), ids)
     ids.sort(axis=1)
     return ids.astype(np.int32)
+
+
+def trigram_df(ids: np.ndarray) -> np.ndarray:
+    """int32[V] document frequency of every trigram id in ``ids``
+    (``trigram_ids_matrix``'s rows): the titles that hold it."""
+    return np.bincount(ids[ids != BIG_TRIGRAM], minlength=TRIGRAM_VOCAB_SIZE).astype(np.int32)
+
+
+def trigram_df_table(encoded: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """``trigram_df`` of these encoded titles."""
+    return trigram_df(trigram_ids_matrix(encoded, lengths))
 
 
 def idf_table_from_df(df: np.ndarray, number_of_titles: int) -> np.ndarray:

@@ -11,7 +11,8 @@ LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
 kernel).  D's and E's kernel, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
-against the same program run op by op, bit for bit.
+against the same program run op by op, bit for bit, and the truth index
+built on the card (``ops/index_device.py``) against the host build.
 """
 
 import numpy as np
@@ -628,4 +629,71 @@ def test_mesh_of_two_cards_launches_each_shard_on_its_card(mesh_world):
     assert mesh._fuzzy_copies[d1].t_enc.device == d1
     r2 = mesh.predict(queries)
     assert np.array_equal(r1.match_title_id, r2.match_title_id)
+    assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))
+
+
+def _same_buffers(a, b):
+    """Every buffer of two engines equal bit for bit."""
+    bufs_a, bufs_b = dict(a.named_buffers()), dict(b.named_buffers())
+    assert bufs_a.keys() == bufs_b.keys()
+    for name, x in bufs_a.items():
+        y = bufs_b[name]
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)), name
+
+
+@pytest.mark.parametrize("mode", ["exact", "folded"])
+def test_device_build_on_the_card_is_the_host_build_bit_for_bit(mesh_world, mode):
+    """The index built on the card from the encodings, its engine's
+    matrices, and each shard of a mesh built on the card equal the host
+    build's, and so does their top-k."""
+    from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+    from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer, build_sharded_index
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(retrieval_mode=mode)
+    host = build_truth_index(truth, cfg.with_(index_build_impl="host"))
+    dev = build_truth_index(truth, cfg, "cuda")
+    assert (host.built_on, dev.built_on) == ("host", "device")
+    assert build_truth_index(truth, cfg).built_on == "device"      # no device: the card
+    for f in ("df", "idf", "sums", "trigrams", "title_ids"):
+        assert getattr(dev, f).tobytes() == getattr(host, f).tobytes(), f
+    for f in ("num_titles", "padded_titles", "max_idf", "content_hash"):
+        assert getattr(dev, f) == getattr(host, f), f
+    a, b = JaccardScorer(dev, cfg, "cuda", truth), JaccardScorer(host, cfg, "cuda", truth)
+    _same_buffers(*((s.exact, s.folded)[mode == "folded"] for s in (a, b)))
+    (va, pa), (vb, pb) = a.topk(queries), b.topk(queries)
+    assert np.array_equal(_bits(va), _bits(vb)) and np.array_equal(pa, pb)
+    mesh = _one_card_mesh()
+    built = build_sharded_index(truth, mesh, cfg)
+    for f in ("df", "idf", "sums", "trigrams", "title_ids"):
+        assert getattr(built.index, f).tobytes() == getattr(host, f).tobytes(), f
+    before = ShardedJaccardScorer(host, mesh, cfg, truth=truth)
+    for x, y in zip(*((s.exact or s.folded) for s in (built, before))):
+        _same_buffers(x, y)
+    (vm, pm), (vh, ph) = built.topk(queries), before.topk(queries)
+    assert np.array_equal(_bits(vm), _bits(vh)) and np.array_equal(pm, ph)
+
+
+def test_matcher_on_the_card_takes_the_device_build_under_auto(mesh_world):
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    model = GBTModel.load(str(MODEL))
+    assert cfg.index_build_impl == "auto"
+    # the device build keeps nothing more on the card than the host build
+    # (built second, so no first-use allocation counts against it)
+    a0 = torch.cuda.memory_allocated()
+    host = Matcher(cfg.with_(index_build_impl="host"), truth, model, device="cuda",
+                   use_index_checkpoint=False)
+    a1 = torch.cuda.memory_allocated()
+    dev = Matcher(cfg, truth, model, device="cuda", use_index_checkpoint=False)
+    a2 = torch.cuda.memory_allocated()
+    assert (dev.index.built_on, host.index.built_on) == ("device", "host")
+    assert a2 - a1 <= a1 - a0
+    r1, r2 = dev.predict(queries), host.predict(queries)
+    assert np.array_equal(r1.match_title_id, r2.match_title_id) and np.array_equal(r1.stage, r2.stage)
     assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))

@@ -23,7 +23,7 @@ from doppelspeller_tpu.utils.io import TitleSet as JTitleSet
 from doppelspeller_tpu.utils.misspell import generate_misspelled_name as j_misspell
 from doppelspeller_tpu_torch import synthetic
 from doppelspeller_tpu_torch.config import Config
-from doppelspeller_tpu_torch.ops import fold
+from doppelspeller_tpu_torch.ops import fold, index_device
 from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
@@ -113,10 +113,12 @@ def test_folded_and_trigram_list_matrices_equal_device_builders(small_world, see
     ip = build_truth_index(truth, cfg)
     fm = fold.build_fold_map(ip.df, 512, seed=seed)
     mc_j = np.asarray(jfold.build_folded_matrix(truth.encoded, truth.lengths, fm, 512, ip.padded_titles))
-    mc_p = fold.build_folded_matrix(truth.encoded, truth.lengths, fm, 512, ip.padded_titles, "cpu")
+    ids, _ = index_device.build_shard(truth.encoded, truth.lengths, "cpu",
+                                      index_device.ids_width(truth.lengths))
+    mc_p = fold.build_folded_matrix(ids, fm, 512, ip.padded_titles)
     np.testing.assert_array_equal(mc_j, mc_p.numpy())
     tl_j, ltw_j = jfold.build_trigram_list_matrix(truth.encoded, truth.lengths, ip.padded_titles)
-    tl_p, ltw_p = fold.build_trigram_list_matrix(truth.encoded, truth.lengths, ip.padded_titles, "cpu")
+    tl_p, ltw_p = fold.build_trigram_list_matrix(ids, ip.padded_titles)
     assert ltw_j == ltw_p
     np.testing.assert_array_equal(np.asarray(tl_j).astype(np.int32), tl_p.numpy())
 
