@@ -25,14 +25,21 @@ Phases, each printing its seconds; any failure exits non-zero:
    ``window_best`` call that its untimed predict made; in the train phase
    on every call that training made.
 5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
-   index (500k titles), exactly equal to ``index_select``.  The kernel and
-   its entry stay; ``Matcher.predict`` gathers inside A's and D's loads.
+   index (500k titles), exactly equal to ``index_select``, and timed
+   beside it in alternating windows.  The kernel and its entry stay;
+   ``Matcher.predict`` gathers inside A's and D's loads.
 6. kernel D (full Jaccard matrix, the union's rows read straight from the
    packed index): QB=128, U=3,072, 524,288 titles, tb=2048, in f32 (rtol
    1e-5) and with bf16 output (one bf16 ulp) against the plain gather and
    scoring; top-k titles equal wherever the scores are untied.  Also times
    the exact top-k (``select_topk_permuted``) on D's outputs.
-7. kernel E (the v1 entry over D's kernel) at the same shapes, f32.
+7. kernel E (sparse weights, exact top-k on chip) at the same shapes in
+   f32, in bf16 and with 60 real titles (k = 100: padding candidates):
+   scores to rtol 1e-5 and titles equal on untied slots against the plain
+   version; the peak device memory of one call, which must stay under a
+   tenth of the dense (QB, ntp) f32 score matrix; timed in alternating
+   windows beside the dense route it replaced (densified weights, D with
+   f32 out, ``select_topk_permuted``).
 8. small worlds: the port on the card against the port's plain CPU path
    (the path the CPU tests hold equal to the JAX package) on a 4,096-title
    world, folded in f32 and exact under the default config; with the
@@ -96,8 +103,10 @@ Phases, each printing its seconds; any failure exits non-zero:
     device time and kernel D's share.
 13. v1 path: the same sample's query blocks through the v1 entry (kernel
     E, with the planner's weights and bound), launched once per block with
-    no launch of C, which must agree with the oracle engine's kernel D
-    retrieval.
+    no launch of C or D, which must agree with the oracle engine's kernel D
+    retrieval; then the oracle engine's blocks (weights rebuilt on the
+    card, D, ``select_topk_permuted``) against the same blocks through E,
+    held equal and timed in alternating windows.
 14. mesh: the title-sharded mesh (``parallel/sharded.py``) on two shards of
     the one card, ``Mesh((cuda:0, cuda:0))``: the shard boundaries,
     launches and merges of two cards.  The exact 150k world (default
@@ -404,6 +413,20 @@ def check_tensor_cores(build, paths):
     return counts
 
 
+def print_ptxas(build, sources=("gather_rows.cu", "score_sparse_topk.cu")):
+    """Print ptxas's registers, shared memory and spills for the kernels of
+    ``sources`` (C, and E's two kernels), as this process built them."""
+    for source in sources:
+        kernel = "?"
+        for line in build.BUILD_LOG.get(source, "").splitlines():
+            m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)", line)
+            if m:
+                kernel = m.group(1)
+            if "registers" in line or "spill" in line:
+                print(f"# ptxas, {source} {kernel}: {line.replace('ptxas info    :', '').strip()}",
+                      flush=True)
+
+
 def profile_predict(torch, matcher, queries, label, kernel, top=10):
     """One extra predict under torch.profiler (device activity only, to keep
     its overhead low): the kernels by device time and the share of
@@ -562,6 +585,33 @@ def union_inputs(torch, ntp=524_288, nt=500_000):
                 maxint=maxint, nt=nt, tb=2048)
 
 
+def alternating_ms(fns, rounds=7, calls=5):
+    """Milliseconds per call of each of ``fns`` (name -> fn): the median
+    over ``rounds`` rounds, each timing one window of ``calls`` calls of
+    every fn in turn, after a warm-up call of each, so that two functions
+    are compared on the card's same state.  A spin of about a millisecond
+    on the card ahead of each window lets the host enqueue the window's
+    calls before the first starts, so a wrapper's host time (a slower one
+    delays its first call) stays out of the device time."""
+    import torch
+
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def check_kernel_c(torch, jk, d):
     packed, ids = d["packed"], d["union_ids"]
     out = jk.gather_rows(packed, ids)
@@ -572,14 +622,15 @@ def check_kernel_c(torch, jk, d):
     ids64 = ids.to(torch.int64)
     nbytes = 2 * ids.shape[0] * packed.shape[1] + ids.numel() * 4
     bound_ms, bound_by = bound(0.0, 1.0, nbytes)
-    res = {"max_abs_err": 0.0,
-           "ms": cuda_ms(lambda: jk.gather_rows(packed, ids)),
-           "plain_ms": cuda_ms(lambda: jk.gather_rows_plain(packed, ids)),
-           "library_ms": cuda_ms(lambda: torch.index_select(packed, 0, ids64)),
+    # C and index_select in alternating windows: their gap is a few per cent
+    t = alternating_ms({"ms": lambda: jk.gather_rows(packed, ids),
+                        "library_ms": lambda: torch.index_select(packed, 0, ids64)})
+    res = {"max_abs_err": 0.0, **t, "plain_ms": cuda_ms(lambda: jk.gather_rows_plain(packed, ids)),
            "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"# kernel C: exactly equal; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
-          f"index_select {res['library_ms']:.3f} ms ({ids.shape[0]} rows x {packed.shape[1]} "
-          f"bytes); bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    print(f"# kernel C: exactly equal; {res['ms']:.3f} ms, index_select {res['library_ms']:.3f} ms "
+          f"(alternating windows), plain {res['plain_ms']:.3f} ms ({ids.shape[0]} rows x "
+          f"{packed.shape[1]} bytes); bound {bound_ms:.3f} ms ({bound_by}), "
+          f"{100 * bound_ms / res['ms']:.1f} % of it", flush=True)
     return res
 
 
@@ -640,32 +691,108 @@ def check_kernel_d(torch, jk, d):
 
 
 def check_kernel_e(torch, jk, d):
-    args = (d["packed"], d["sums"], d["union_ids"], d["w_pos"], d["w_val"], d["maxint"], d["nt"])
-    kw = dict(k=100, tb=d["tb"], score_dtype="float32")
-    vk, pk = jk.jaccard_topk_v1(*args, **kw)
-    vp, pp = jk.jaccard_topk_v1_plain(*args, **kw)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
-    sep = jk.untied_slots(vp, 1e-6)
-    if not torch.equal(pk[sep], pp[sep]):
-        raise AssertionError("kernel E: top-k titles differ where untied")
+    packed, ids, w_pos, w_val = d["packed"], d["union_ids"], d["w_pos"], d["w_val"]
+    sums, maxint, nt, tb, k = d["sums"], d["maxint"], d["nt"], d["tb"], 100
+    U, nbytes_row = ids.shape[0], packed.shape[1]
+    qb, lq = w_pos.shape
+    ntp = nbytes_row * 8
+    res = {"library_ms": None}
+    # f32 and bf16 weights at the oracle's shapes, and f32 with fewer real
+    # titles than k (padding candidates at -1, ordered by column)
+    for label, dt, n_real in (("float32", "float32", nt), ("bfloat16", "bfloat16", nt),
+                              ("nt<k", "float32", 60)):
+        args = (packed, sums, ids, w_pos, w_val, maxint, n_real)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        vk, pk = jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype=dt)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        vp, pp = jk.jaccard_topk_v1_plain(*args, k=k, tb=tb, score_dtype=dt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
+        sep = jk.untied_slots(vp, 1e-6)
+        if not torch.equal(pk[sep], pp[sep]):
+            raise AssertionError(f"kernel E {label}: top-k titles differ where untied")
+        if n_real < k and not (torch.equal(pk[:, n_real:], pp[:, n_real:])
+                               and (vk[:, n_real:] == -1).all()):
+            raise AssertionError("kernel E nt<k: the padding candidates differ")
+        # the score matrix the dense route writes is qb x ntp f32
+        if peak > qb * ntp * 4 / 10:
+            raise AssertionError(f"kernel E {label}: peak {peak} B against a {qb * ntp * 4} B matrix")
+        print(f"# kernel E {label}: max |top-k err| {float((vk - vp).abs().max()):.3e} (rtol "
+              f"1e-5); titles equal on {int(sep.sum())} untied slots; peak device memory of one "
+              f"call {peak / 1e6:.3f} MB (the dense score matrix: {qb * ntp * 4 / 1e6:.1f} MB)",
+              flush=True)
+        if label == "float32":
+            res["max_abs_err"], res["peak_bytes"] = float((vk - vp).abs().max()), peak
+    args = (packed, sums, ids, w_pos, w_val, maxint, nt)
+
+    def dense_route():
+        """E before its own kernel: densified weights, D with f32 out, the
+        exact top-k over D's (QB, ntp) matrix."""
+        w = jk.densify_weights(w_pos, w_val, U)
+        return jk.select_topk_permuted(jk.score_full(packed, ids, w, sums, maxint, nt, tb=tb,
+                                                     score_dtype="float32"), k, tb)
+
+    t = alternating_ms({"ms": lambda: jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype="float32"),
+                        "dense_route_ms": dense_route,
+                        "ms_bf16": lambda: jk.jaccard_topk_v1(*args, k=k, tb=tb,
+                                                              score_dtype="bfloat16")})
+    res.update(t)
+    res["plain_ms"] = cuda_ms(lambda: jk.jaccard_topk_v1_plain(*args, k=k, tb=tb,
+                                                               score_dtype="float32"))
     # the products and rows its lq weights a query need (f32: three bf16
     # passes); ids, weight slots, sums and bound read once, the top-k
     # written once
-    U, nbytes_row = d["union_ids"].shape[0], d["packed"].shape[1]
-    qb, lq = d["w_pos"].shape
-    flop, row_bytes = contraction_need(jk.densify_weights(d["w_pos"], d["w_val"], U),
-                                       d["union_ids"], nbytes_row * 8, kw["score_dtype"])
-    bound_ms, bound_by = bound(flop, BF16_FLOP_PER_S, row_bytes + U * 4 + qb * lq * 8
-                               + nbytes_row * 32 + qb * 4 + qb * kw["k"] * 8)
-    res = {"max_abs_err": float((vk - vp).abs().max()),
-           "ms": cuda_ms(lambda: jk.jaccard_topk_v1(*args, **kw)),
-           "plain_ms": cuda_ms(lambda: jk.jaccard_topk_v1_plain(*args, **kw)),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    print(f"# kernel E: max |top-k err| {res['max_abs_err']:.3e} (rtol 1e-5); titles equal on "
-          f"{int(sep.sum())} untied slots; {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
-          f"per 128-query block (gather, densify, score, select); bound {bound_ms:.3f} ms "
-          f"({bound_by})", flush=True)
+    flop, row_bytes = contraction_need(jk.densify_weights(w_pos, w_val, U), ids, ntp, "float32")
+    res["bound_ms"], res["bound_by"] = bound(flop, BF16_FLOP_PER_S, row_bytes + U * 4
+                                             + qb * lq * 8 + ntp * 4 + qb * 4 + qb * k * 8)
+    print(f"# kernel E: {res['ms']:.3f} ms f32, {res['ms_bf16']:.3f} ms bf16, the dense route "
+          f"(densify, D f32, select_topk_permuted) {res['dense_route_ms']:.3f} ms, in alternating "
+          f"windows; plain {res['plain_ms']:.3f} ms per 128-query block; bound "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']}), {100 * res['bound_ms'] / res['ms']:.1f} % "
+          f"of it", flush=True)
+    return res
+
+
+def oracle_blocks_through_e(torch, jk, engine, plans, k, score_dtype):
+    """Whether kernel E pays on the oracle path: the oracle engine's blocks
+    (``topk_union``: weights rebuilt on the card, D, the exact top-k over
+    its matrix) against the same blocks with the same weights and bound
+    through E instead, results held equal (titles on untied slots), both
+    timed in alternating windows over all the blocks."""
+    dev_plans = [(torch.from_numpy(p.union_ids).to("cuda"), torch.from_numpy(p.w_pos).to("cuda"))
+                 for p in plans]
+    zero = torch.zeros(1, dtype=torch.float32, device="cuda")
+
+    def through_e(uid, w_pos):
+        uid = uid.to(torch.int64)
+        wp = w_pos.to(torch.int64).clamp(max=uid.shape[0])
+        w_val = torch.cat([engine.idf[uid], zero])[wp]
+        maxint = torch.cat([engine.fb[uid], zero])[wp].sum(dim=1)
+        return jk.jaccard_topk_v1(engine.packed, engine.sums, uid, wp, w_val, maxint, engine.nt,
+                                  k=k, tb=engine.tb, score_dtype=score_dtype)
+
+    n_sep = 0
+    for (uid, w_pos), p in zip(dev_plans, plans):
+        (va, pa), (vb, pb) = through_e(uid, w_pos), engine.topk_union(uid, w_pos, k)
+        va, pa, vb, pb = (x[: p.n_valid] for x in (va, pa, vb, pb))
+        torch.testing.assert_close(va, vb, rtol=1e-5, atol=1e-7)
+        sep = jk.untied_slots(vb, 1e-6)
+        n_sep += int(sep.sum())
+        if not torch.equal(pa[sep], pb[sep]):
+            raise AssertionError("the oracle's blocks through kernel E differ from D's route")
+    t = alternating_ms({"d_select": lambda: [engine.topk_union(u, w, k) for u, w in dev_plans],
+                        "e": lambda: [through_e(u, w) for u, w in dev_plans]}, rounds=5, calls=1)
+    res = {"blocks": len(plans), "untied_slots_equal": n_sep,
+           "d_select_ms_per_block": t["d_select"] / len(plans), "e_ms_per_block": t["e"] / len(plans),
+           "union_sizes": sorted({int(p.union_ids.shape[0]) for p in plans}),
+           "lq": int(plans[0].w_pos.shape[1])}
+    print(f"# oracle blocks: {len(plans)} (unions {res['union_sizes']}, LQ {res['lq']}) through the "
+          f"oracle engine (weights, D, select_topk_permuted) {res['d_select_ms_per_block']:.3f} ms a "
+          f"block, through kernel E {res['e_ms_per_block']:.3f} ms, in alternating windows; equal "
+          f"on {n_sep} untied slots", flush=True)
     return res
 
 
@@ -1833,6 +1960,7 @@ def main() -> int:
     print(f"# built {len(paths)} libraries in {_build.BUILD_SECONDS or 0.0:.1f} s: "
           f"{', '.join(os.path.relpath(p, ROOT) for p in paths.values())}", flush=True)
     hgmma = check_tensor_cores(_build, paths)
+    print_ptxas(_build)
     phase("build", t)
 
     t = time.time()
@@ -2043,9 +2171,10 @@ def main() -> int:
         n_bad += int((pa[sep] != pb[sep]).sum())
     print(f"# v1 path: {len(plans)} blocks; top-{k} titles equal to kernel D's on "
           f"{n_sep - n_bad}/{n_sep} untied slots; launches {json.dumps(lv)}", flush=True)
-    if n_bad or lv["E"] != len(plans) or lv["C"]:
+    if n_bad or lv["E"] != len(plans) or lv["C"] or lv["D"]:
         raise AssertionError(f"the v1 path disagrees with kernel D, or did not launch E once per "
-                             f"block without C: {lv}")
+                             f"block without C and D: {lv}")
+    ke["oracle_blocks"] = oracle_blocks_through_e(torch, jk, engine, plans, k, cfg_o.score_dtype)
     phase("v1_path", t)
     del engine, v1, v2
 
@@ -2124,9 +2253,10 @@ def main() -> int:
               "kernel C's function (jaccard_pallas.py:29)", plus(lo), kd, hgmma=hgmma["D"],
               **{k: kd[k] for k in ("ms_bf16", "plain_ms_bf16", "bound_ms_bf16", "bound_by_bf16",
                                     "select_ms", "select_ms_bf16")}),
-        entry("jaccard_topk_v1", "E", "score_full.cu", "jaccard_pallas.py:135",
+        entry("jaccard_topk_v1", "E", "score_sparse_topk.cu", "jaccard_pallas.py:135",
               "v1 path (the oracle sample's retrieval); launches: it and the mesh phase",
-              plus(lv), ke),
+              plus(lv), ke, **{k: ke[k] for k in ("ms_bf16", "dense_route_ms", "peak_bytes",
+                                                  "oracle_blocks")}),
     ]
     print(f"# packed index build: {build_150k:.3f} s at {N_TITLES_EXACT} titles, "
           f"{build_500k:.3f} s at {N_TITLES} titles", flush=True)

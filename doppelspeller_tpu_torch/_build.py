@@ -37,6 +37,8 @@ _SIGNATURES = {
     "doppel_gather_rows": ("gather_rows.cu", [_P, _P, _P, _I, _L, _P]),
     "doppel_score_full": ("score_full.cu",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P]),
+    "doppel_score_sparse_topk": ("score_sparse_topk.cu",
+                                 [_P] * 10 + [_I, _I, _I, _L, _I, _I, _I, _I, _P]),
 }
 
 _LIB: Optional[SimpleNamespace] = None

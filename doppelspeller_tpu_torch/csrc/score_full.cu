@@ -1,13 +1,11 @@
 // Kernel D: the full (QB, ntp) IDF-weighted Jaccard matrix of a query block
 // against every title, with the union's row gather fused into its loads, for
-// NVIDIA Hopper (sm_90a), on the tensor cores.  Kernel E (the v1 entry,
-// sparse weights, f32 output) runs this kernel too.
+// NVIDIA Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernels doppelspeller_tpu/ops/jaccard_pallas.py
 // _score_kernel_v2 (with _accumulate_numerator and _unpack_mm_chunk, folds
 // = 1), entered through jaccard_topk_pallas_v2(window_select=False) together
-// with that entry's row gather of the union (packed[union_ids]), and
-// _score_kernel, entered through jaccard_topk_pallas.
+// with that entry's row gather of the union (packed[union_ids]).
 //
 // What it computes.  packed: u8 (V, nbytes) the packed trigram index, bit
 // t%8 of byte t/8 set when title t holds trigram v; ids: i32 (U,) the

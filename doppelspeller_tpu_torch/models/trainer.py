@@ -60,9 +60,12 @@ class WordCounts:
             out[k] = self.counter[w]
         return out
 
-    def matrix(self, titles: List[str]) -> np.ndarray:
-        """uint32[len(titles), 15]."""
+    def for_titles(self, titles: List[str]) -> np.ndarray:
         return np.stack([self.for_title(t) for t in titles])
+
+    def matrix(self, titles: List[str]) -> np.ndarray:
+        """uint32[len(titles), 15] — computed once, gathered per pair."""
+        return self.for_titles(titles)
 
 
 @dataclass

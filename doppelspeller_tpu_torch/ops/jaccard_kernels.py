@@ -1,5 +1,5 @@
 """Retrieval kernels: A (window select), C (row gather), D (full matrix) and
-E (the v1 entry over D's kernel).
+E (sparse weights, exact top-k).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; there is no other route.  A launch runs
@@ -19,8 +19,10 @@ TPU kernels of ``doppelspeller_tpu/ops/jaccard_pallas.py``:
   the union's row gather before it: the full (QB, ntp) Jaccard matrix, bf16
   out when scoring in bf16, else f32, reading the union's rows straight
   from the packed index; on A's tensor-core mainloop and weight image.
-- E ``jaccard_topk_v1`` ↔ ``_score_kernel`` (``jaccard_topk_pallas``):
-  sparse weights densified, D's kernel with f32 out.
+- E ``jaccard_topk_v1`` (``csrc/score_sparse_topk.cu``) ↔ ``_score_kernel``
+  (``jaccard_topk_pallas``) with its densified weights and exact top-k:
+  only the weighted slots scored, on the CUDA cores, each title range's
+  top-k selected on chip and the ranges merged by a second kernel.
 
 Titles are stored in natural order (bit t % 8 of byte t // 8), not in the
 TPU kernels' per-tile permutation π, but every choice that depends on π is
@@ -30,9 +32,9 @@ of a tile holds offsets o < W, offset o being tile-local title
 runner-ups each window drops decides which titles reach the next stage.
 Kernel D writes its columns in π order (column c of a tile holds title
 8·(c mod nb) + c div nb), and its top-k breaks ties toward the lower
-column, as the reference's does.
+column, as the reference's does; kernel E's keys carry the same order.
 
-Both top-k selects are exact.  The TPU reference used ``approx_max_k``; off
+The top-k selects are exact.  The TPU reference used ``approx_max_k``; off
 the TPU that call is an exact top-k, so the port is exact everywhere.
 """
 
@@ -342,15 +344,21 @@ def score_out_dtype(score_dtype: str) -> torch.dtype:
     return torch.bfloat16 if score_dtype == "bfloat16" else torch.float32
 
 
-def _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, out_dtype, entry):
-    """D's checks and routes: the plain version on CPU tensors (gather, then
-    score), the kernel with the gather fused on CUDA tensors, counted on
-    ``entry`` (the public wrapper called)."""
+def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
+               maxint: torch.Tensor, nt: int, *, tb: int, score_dtype: str) -> torch.Tensor:
+    """The full Jaccard matrix of a query block over the union rows
+    ``union_ids`` (U,) (repeats allowed, each in [0, V): the kernel reads
+    ``packed[id]`` unchecked) of the packed index u8 (V, ntp/8):
+    w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp) in π
+    column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU tensors
+    gather and score with the plain versions; CUDA tensors launch the
+    kernel, which reads the union's rows straight from ``packed``."""
     if packed.dtype != torch.uint8 or packed.dim() != 2 or union_ids.dim() != 1:
         raise TypeError("kernel D takes a 2-D uint8 packed index and 1-D union ids")
     V, nbytes = packed.shape
     U = union_ids.shape[0]
     QB = w.shape[0]
+    out_dtype = score_out_dtype(score_dtype)
     if w.dtype != torch.float32:
         raise TypeError("w must be float32")
     if w.shape[1] != U or sums.shape != (nbytes * 8,) or maxint.shape != (QB,):
@@ -379,43 +387,42 @@ def _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, out_dty
             int(nt), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "doppel_score_full")
-    entry.launches += 1
+    score_full.launches += 1
     return out
-
-
-def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
-               maxint: torch.Tensor, nt: int, *, tb: int, score_dtype: str) -> torch.Tensor:
-    """The full Jaccard matrix of a query block over the union rows
-    ``union_ids`` (U,) (repeats allowed, each in [0, V): the kernel reads
-    ``packed[id]`` unchecked) of the packed index u8 (V, ntp/8):
-    w f32 (QB, U), sums f32 (ntp,), maxint f32 (QB,) → (QB, ntp) in π
-    column order, bf16 when ``score_dtype`` is bf16, else f32.  CPU tensors
-    gather and score with the plain versions; CUDA tensors launch the
-    kernel, which reads the union's rows straight from ``packed``."""
-    return _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype,
-                       score_out_dtype(score_dtype), score_full)
 
 
 score_full.launches = 0
 
 
-def select_topk_permuted(jacc: torch.Tensor, k: int, tb: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over a π-ordered score matrix (f32 or bf16), ties to the
-    lower column (the order the reference's blockwise ``lax.top_k`` merge
-    gives), mapped back to titles.  Returns (vals f32 (QB, k), titles i32
-    (QB, k)).
-
-    The f32 bits of each score become an order-preserving int32; with the
-    complement of the column below them they make unique int64 keys, so a
-    plain top-k over the keys is exact and fixes the order of ties."""
+def score_keys(jacc: torch.Tensor) -> torch.Tensor:
+    """int64 keys (QB, ntp) of a π-ordered score matrix (f32 or bf16): the
+    f32 bits of each score as an order-preserving int32 above the
+    complement of its column, so keys are unique, a larger key is a higher
+    score, and of equal scores the lower column has the larger key (the
+    order the reference's blockwise ``lax.top_k`` merge gives)."""
     ntp = jacc.shape[1]
     bits = jacc.to(torch.float32).view(torch.int32)
     mono = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     low = 0xFFFFFFFF - torch.arange(ntp, device=jacc.device, dtype=torch.int64)
-    key = mono.to(torch.int64) * (1 << 32) + low[None, :]
-    cols = 0xFFFFFFFF - (torch.topk(key, k, dim=1).values & 0xFFFFFFFF)
-    vals = torch.gather(jacc, 1, cols).to(torch.float32)
+    return mono.to(torch.int64) * (1 << 32) + low[None, :]
+
+
+def select_topk_keys(keys: torch.Tensor, k: int, tb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of ``score_keys`` keys (QB, n), any subset of a row's
+    keys that holds its k largest: (vals f32 (QB, k), titles i32 (QB, k)),
+    scores descending, ties to the lower column."""
+    top = torch.topk(keys, k, dim=1).values
+    mono = (top >> 32).to(torch.int32)
+    vals = (mono ^ ((mono >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    cols = 0xFFFFFFFF - (top & 0xFFFFFFFF)
     return vals, unpermute_positions(cols, tb).to(torch.int32)
+
+
+def select_topk_permuted(jacc: torch.Tensor, k: int, tb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a π-ordered score matrix (f32 or bf16), ties to the
+    lower column, mapped back to titles: a plain top-k over the unique
+    ``score_keys``.  Returns (vals f32 (QB, k), titles i32 (QB, k))."""
+    return select_topk_keys(score_keys(jacc), k, tb)
 
 
 def untied_slots(vals: torch.Tensor, eps: float) -> torch.Tensor:
@@ -451,20 +458,67 @@ def jaccard_topk_v1_plain(packed, sums, union_ids, w_pos, w_val, maxint, nt, *, 
     return select_topk_permuted(jacc, k, tb)
 
 
+# kernel E: titles of a block's range, the most weight slots a query and the
+# largest k it takes
+_E_RANGE, _E_MAX_SLOTS, _E_MAX_K = 8192, 256, 1024
+
+
 def jaccard_topk_v1(packed: torch.Tensor, sums: torch.Tensor, union_ids: torch.Tensor,
                     w_pos: torch.Tensor, w_val: torch.Tensor, maxint: torch.Tensor, nt: int,
                     *, k: int, tb: int, score_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's v1 retrieval step: packed u8 (V, ntp/8), sums f32
-    (ntp,), union_ids (U,), w_pos (QB, LQ) positions into the union (U =
-    padding), w_val f32 (QB, LQ), maxint f32 (QB,) → exact top-k (scores
-    f32 (QB, k), titles i32 (QB, k)).  Scores are f32 whatever
-    ``score_dtype`` (which rounds the weights).  CPU tensors take the plain
-    versions; CUDA tensors launch D's kernel, which reads the union's rows
-    straight from ``packed``."""
-    w = densify_weights(w_pos, w_val, union_ids.shape[0])
-    jacc = _score_full(packed, union_ids, w, sums, maxint, nt, tb, score_dtype, torch.float32,
-                       jaccard_topk_v1)
-    return select_topk_permuted(jacc, k, tb)
+    (ntp,), union_ids (U,) row ids in [0, V) (repeats allowed; each
+    position adds its row), w_pos (QB, LQ) positions into the union, U the
+    padding slot, w_val f32 (QB, LQ), maxint f32 (QB,) → exact top-k
+    (scores f32 (QB, k), titles i32 (QB, k)), ties to the lower π column,
+    titles past ``nt`` at -1.  Scores are f32 whatever ``score_dtype``
+    (which rounds the weights).  A query's positions must be distinct but
+    for the padding slot, as the planner makes them: the plain version sets
+    each position's weight, the kernel adds every slot.  CPU tensors take
+    the plain version; CUDA tensors launch kernel E, which reads
+    ``packed[id]`` unchecked and takes LQ ≤ 256, tiles tb of a power of two
+    from 32 to 8,192 titles and k ≤ min(1,024, ntp)."""
+    if packed.device.type == "cpu":
+        return jaccard_topk_v1_plain(packed, sums, union_ids, w_pos, w_val, maxint, nt, k=k, tb=tb,
+                                     score_dtype=score_dtype)
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or union_ids.dim() != 1 or w_pos.dim() != 2:
+        raise TypeError("kernel E takes a 2-D uint8 packed index, 1-D union ids and 2-D w_pos")
+    if score_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown score_dtype {score_dtype!r}")
+    if w_val.dtype != torch.float32 or sums.dtype != torch.float32 or maxint.dtype != torch.float32:
+        raise TypeError("w_val, sums and maxint must be float32")
+    nbytes = packed.shape[1]
+    ntp = nbytes * 8
+    QB, LQ = w_pos.shape
+    if w_val.shape != (QB, LQ) or sums.shape != (ntp,) or maxint.shape != (QB,):
+        raise ValueError(f"shape mismatch: packed {tuple(packed.shape)}, w_pos {tuple(w_pos.shape)}, "
+                         f"w_val {tuple(w_val.shape)}, sums {tuple(sums.shape)}, maxint "
+                         f"{tuple(maxint.shape)}")
+    if (tb < 32 or tb > _E_RANGE or tb & (tb - 1) or ntp % tb or not 1 <= k <= min(_E_MAX_K, ntp)
+            or LQ > _E_MAX_SLOTS):
+        raise ValueError(f"kernel E takes tiles of a power of two from 32 to {_E_RANGE} titles that "
+                         f"divide the titles, 1 <= k <= min({_E_MAX_K}, titles) and at most "
+                         f"{_E_MAX_SLOTS} slots a query, got tb={tb}, {ntp} titles, k={k}, LQ={LQ}")
+    ids32 = union_ids.to(torch.int32).contiguous()
+    pos32 = w_pos.to(torch.int32).contiguous()
+    dev = _check_launch("kernel E", packed, ids32, pos32, w_val, sums, maxint)
+    vals = torch.empty((QB, k), dtype=torch.float32, device=dev)
+    titles = torch.empty((QB, k), dtype=torch.int32, device=dev)
+    if QB == 0:
+        return vals, titles
+    # each title range's top-k keys, and the query's floor under its k-th key
+    keys = torch.empty((QB, -(-ntp // _E_RANGE) * k), dtype=torch.int64, device=dev)
+    floor = torch.full((QB,), torch.iinfo(torch.int64).min, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().doppel_score_sparse_topk(
+            packed.data_ptr(), ids32.data_ptr(), pos32.data_ptr(), w_val.data_ptr(), sums.data_ptr(),
+            maxint.data_ptr(), keys.data_ptr(), floor.data_ptr(), vals.data_ptr(), titles.data_ptr(),
+            QB, ids32.shape[0], LQ, nbytes, int(nt), tb, k, int(score_dtype == "bfloat16"),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "doppel_score_sparse_topk")
+    jaccard_topk_v1.launches += 1
+    return vals, titles
 
 
 jaccard_topk_v1.launches = 0

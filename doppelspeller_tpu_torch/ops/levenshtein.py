@@ -7,11 +7,18 @@ PyTorch has no uint32 add or popcount, so every 32-bit word is held in an
 int64 lane: sums and differences are taken in 64 bits, the carry and borrow
 are read from bit 32 and the sign, and the result is masked back to 32 bits;
 the popcount is a SWAR reduction.  ratio(a, b) = 200·LCS / (|a| + |b|).
+``batched_ratio`` and ``ratio_rounded`` are the JAX module's host wrappers
+over numpy pairs, grouped by length bucket.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from doppelspeller_tpu_torch.config import Config, get_config
 
 _MASK32 = 0xFFFFFFFF
 
@@ -78,3 +85,42 @@ def rounded_ratio(a, la, b, lb) -> torch.Tensor:
     total = torch.clamp(la.to(torch.int64) + lb.to(torch.int64), min=1).to(torch.float32)
     r = 200.0 * lcs(a, la, b, lb).to(torch.float32) / total
     return torch.round(r).to(torch.int32)
+
+
+def batched_ratio(enc_a: np.ndarray, len_a: np.ndarray, enc_b: np.ndarray, len_b: np.ndarray,
+                  config: Optional[Config] = None, device="cuda") -> np.ndarray:
+    """Host wrapper: unrounded float32 ratios 200·lcs / (|a| + |b|) (100
+    where both are empty) for N pairs of u8 encodings (N, width), any
+    lengths ≤ 256, computed on ``device``.  Pairs are grouped by
+    ``config.length_buckets`` (the max of the two lengths; the widest
+    bucket is the encodings' width) and cut into chunks that bound the
+    (B, Lb, La) match masks, as the JAX package's ``batched_ratio`` does.
+    Callers apply the reference's integer semantics (``ratio_rounded``, or
+    a floor)."""
+    cfg = config or get_config()
+    len_a = np.asarray(len_a, dtype=np.int32)
+    len_b = np.asarray(len_b, dtype=np.int32)
+    out = np.zeros(len(len_a), dtype=np.float32)
+    buckets = [b for b in cfg.length_buckets if b < enc_a.shape[1]] + [enc_a.shape[1]]
+    bucket_idx = np.searchsorted(np.asarray(buckets), np.maximum(len_a, len_b))
+    for bi, bkt in enumerate(buckets):
+        sel = np.flatnonzero(bucket_idx == bi)
+        chunk = int(np.clip((1 << 25) // (bkt * bkt), 64, cfg.pair_block))
+        for start in range(0, len(sel), chunk):
+            idx = sel[start : start + chunk]
+            la = torch.from_numpy(np.minimum(len_a[idx], bkt)).to(device)
+            lb = torch.from_numpy(np.minimum(len_b[idx], bkt)).to(device)
+            lcs_len = lcs(torch.from_numpy(enc_a[idx, :bkt]).to(device), la,
+                          torch.from_numpy(enc_b[idx, :bkt]).to(device), lb)
+            total = (la + lb).to(torch.float32)
+            r = torch.where(total > 0, 200.0 * lcs_len.to(torch.float32) / total,
+                            torch.full_like(total, 100.0))
+            out[idx] = r.cpu().numpy()
+    return out
+
+
+def ratio_rounded(enc_a: np.ndarray, len_a: np.ndarray, enc_b: np.ndarray, len_b: np.ndarray,
+                  config: Optional[Config] = None, device="cuda") -> np.ndarray:
+    """``batched_ratio`` rounded half to even, as int32 (python-Levenshtein's
+    ``int(round(x))``)."""
+    return np.round(batched_ratio(enc_a, len_a, enc_b, len_b, config, device)).astype(np.int32)

@@ -7,8 +7,8 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
 ``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
-LCS), C (row gather), D (full Jaccard matrix) and E (the v1 entry over D's
-kernel).  D's and E's kernel, and A with ``union_ids``, read the union's
+LCS), C (row gather), D (full Jaccard matrix) and E (sparse weights, exact
+top-k).  D's and E's kernels, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
 against the same program run op by op, bit for bit, and the truth index
@@ -139,7 +139,7 @@ def test_kernel_a_takes_ids_with_one_fold_only(cuda):
                                score_dtype="float32", union_ids=ids[:0])
 
 
-@pytest.mark.parametrize("U,nbytes", [(1024, 8192), (37, 16), (3, 48)])
+@pytest.mark.parametrize("U,nbytes", [(1024, 8192), (37, 16), (3, 48), (300, 65_536 + 48)])
 def test_kernel_c_equals_index_select(cuda, U, nbytes):
     g = torch.Generator(device="cuda").manual_seed(U)
     src = torch.randint(0, 256, (500, nbytes), device=cuda, generator=g, dtype=torch.int32).to(torch.uint8)
@@ -223,28 +223,81 @@ def test_kernel_d_rejects_what_it_does_not_take(cuda):
         jk.score_full(packed, ids, w[:, 1:], sums, maxint, 4000, tb=2048, score_dtype="float32")
 
 
-@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
-def test_kernel_e_matches_plain(cuda, score_dtype):
-    qb, U, lq, nt, tb, k = 64, 2048, 40, 100_000, 2048, 100
-    packed, union_ids, _w, sums, _maxint = _d_inputs(5, qb, U, 4000, 1 << 17, nt, cuda)
-    g = torch.Generator(device="cuda").manual_seed(9)
-    w_pos = torch.sort(torch.rand((qb, U - 5), device=cuda, generator=g).argsort(dim=1)[:, :lq],
+def _e_inputs(seed, qb, U, lq, ntp, nt, device, integer=False):
+    """Kernel E's arguments: a packed index, a union of U ids, per query up
+    to lq distinct positions (the last queries partly padding slots U),
+    weights, sums and the real path's bound (at least every intersection).
+    With ``integer`` the weights and sums are small integers and every
+    title copies one of 24, so scores tie exactly, across E's title ranges
+    too."""
+    packed, union_ids, _w, sums, _maxint = _d_inputs(seed, qb, U, 4000, ntp, nt, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    w_pos = torch.sort(torch.rand((qb, U - 5), device=device, generator=g).argsort(dim=1)[:, :lq],
                        dim=1).values.to(torch.int32)
-    w_pos[-3:, 20:] = U                                           # padding slots
-    w_val = torch.rand((qb, lq), device=cuda, generator=g) * 6.0
-    # the real path's bound: at least every intersection
+    w_pos[-3:, lq // 2:] = U                                          # padding slots
+    w_val = torch.rand((qb, lq), device=device, generator=g) * 6.0
+    if integer:
+        w_val = torch.floor(w_val) + 1.0
+        sums = torch.floor(sums)
+        src = torch.randint(0, 24, (ntp,), device=device, generator=g)
+        bits = torch.stack([(packed >> s) & 1 for s in range(8)], dim=2).reshape(packed.shape[0], ntp)
+        bits = bits[:, src].reshape(packed.shape[0], ntp // 8, 8)
+        packed = (bits << torch.arange(8, device=device, dtype=torch.uint8)).sum(dim=2).to(torch.uint8)
+        sums = sums[src]
+        sums[nt:] = 0.0
     maxint = jk.densify_weights(w_pos, w_val, U).sum(dim=1) + 1.0
-    args = (packed, sums, union_ids, w_pos, w_val, maxint, nt)
+    return packed, sums, union_ids, w_pos, w_val, maxint, nt
+
+
+@pytest.mark.parametrize("score_dtype,qb,lq,tb,ntp,nt,k,integer", [
+    ("float32", 64, 40, 2048, 1 << 17, 100_000, 100, False),
+    ("bfloat16", 64, 40, 2048, 1 << 17, 100_000, 100, False),
+    ("float32", 37, 40, 2048, 1 << 17, 60, 100, False),           # nt < k: padding candidates
+    ("float32", 128, 64, 128, (1 << 16) + 2048, 65_000, 128, False),  # a partial last range
+    ("float32", 20, 253, 32, 1 << 14, 12_345, 128, False),        # nt inside a tile; the planner's largest LQ
+    ("float32", 16, 24, 2048, 1 << 16, 60_000, 100, True),        # ties across the title ranges
+    ("bfloat16", 16, 24, 128, 1 << 15, 30_000, 64, True),
+])
+def test_kernel_e_matches_plain(cuda, score_dtype, qb, lq, tb, ntp, nt, k, integer):
+    args = _e_inputs(qb + lq + tb, qb, 2048, lq, ntp, nt, cuda, integer=integer)
     counters = (jk.jaccard_topk_v1, jk.gather_rows, jk.score_full)
     before = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     vk, pk = jk.jaccard_topk_v1(*args, k=k, tb=tb, score_dtype=score_dtype)
-    # E is D's kernel with the gather fused: no launch of C, none counted on D
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # E's own kernel: no launch of C or D, and no (QB, ntp) score matrix
     assert [c.launches for c in counters] == [before[0] + 1, before[1], before[2]]
+    assert peak < qb * ntp * 4 / 4
     vp, pp = jk.jaccard_topk_v1_plain(*args, k=k, tb=tb, score_dtype=score_dtype)
     torch.cuda.synchronize()
+    if integer:
+        # every score an exact ratio of small integers: equal everywhere,
+        # ties and their order included
+        assert torch.equal(vk, vp) and torch.equal(pk, pp)
+        assert (~jk.untied_slots(vp, 0.0)).float().mean() > 0.5
+        return
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-7)
     sep = jk.untied_slots(vp, 1e-6)
+    assert sep.float().mean() > 0.5 or nt < k
     assert torch.equal(pk[sep], pp[sep])
+    if nt < k:
+        assert (vk[:, nt:] == -1).all() and torch.equal(pk[:, nt:], pp[:, nt:])
+
+
+def test_kernel_e_rejects_what_it_does_not_take(cuda):
+    packed, sums, ids, w_pos, w_val, maxint, nt = _e_inputs(0, 8, 64, 16, 1 << 14, 10_000, cuda)
+    for kw in (dict(tb=16, k=10), dict(tb=96, k=10), dict(tb=16384, k=10), dict(tb=2048, k=0),
+               dict(tb=2048, k=(1 << 14) + 1)):
+        with pytest.raises(ValueError):
+            jk.jaccard_topk_v1(packed, sums, ids, w_pos, w_val, maxint, nt, score_dtype="float32",
+                               **kw)
+    wide = torch.full((8, 257), 64, dtype=torch.int32, device=cuda)     # LQ past 256
+    with pytest.raises(ValueError):
+        jk.jaccard_topk_v1(packed, sums, ids, wide, wide.float(), maxint, nt, k=10, tb=2048,
+                           score_dtype="float32")
 
 
 def _b_inputs(seed, B, TL, WL, device):
