@@ -109,25 +109,36 @@ Phases, each printing its seconds; any failure exits non-zero:
     held equal and timed in alternating windows.
 14. mesh: the title-sharded mesh (``parallel/sharded.py``) on two shards of
     the one card, ``Mesh((cuda:0, cuda:0))``: the shard boundaries,
-    launches and merges of two cards.  The exact 150k world (default
-    config; two shards of 98,304 padded titles, tb 2,048 like the single
-    card's 163,840, so the windows line up): ``Matcher(mesh=)``
-    construction seconds (built on the mesh, each shard's ids, frequencies,
-    sums and matrices on its device), one untimed predict (every call of A and B held
-    against the plain version), then timed predicts in turns with a
-    single-card Matcher (single, mesh, mesh, single), where A must launch
-    twice per block, every launch gathering; ``scorer.topk`` must equal the
-    single card's exact engine bit for bit on all 16,384 queries and the
-    predictions the single card's row for row (ids, titles, stages,
-    predictions exactly).  The folded 500k world (two shards of 262,144
-    titles): an untimed predict, where A launches with folds=2 on both
-    shards' folded matrices (every call of A and B held against the plain
-    version at the shards' shapes), then timed predicts in turns with the folded
-    main path's Matcher; accuracy at least 0.80 and within 0.01 of the
-    single card's; the share of rows whose mesh top-k dominates the single
-    card's score by score is printed.  The oracle sample through ``build_sharded_index`` under the
-    oracle config: D once per shard and block, A never, candidates equal
-    to the single card's bit for bit.  Training: ``quick_train_rows`` and
+    streams, launches and merges of two cards (one worker thread, a stream
+    a shard).  The exact 150k world (default config; two shards of 98,304
+    padded titles, tb 2,048 like the single card's 163,840, so the windows
+    line up): ``Matcher(mesh=)`` construction seconds (built on the mesh,
+    each shard's ids, frequencies, sums and matrices on its device), one
+    untimed predict op by op (``workers.use_graphs = False``; every call
+    of A and B held against the plain version), one untimed predict
+    through the graphs (each shard's captures by name printed: retrieval,
+    fuzzy and model), then timed predicts in turns with a single-card
+    Matcher (single, mesh, mesh, single), where A must launch twice per
+    block, every launch gathering, and each shard replay a retrieval
+    graph once a block and the fuzzy and model stages' graphs; ``scorer.topk`` must equal the single card's
+    exact engine bit for bit on all 16,384 queries and the predictions
+    the single card's row for row (ids, titles, stages, predictions
+    exactly); then one predict of each Matcher under torch.profiler
+    (host and device activity): the host's launch calls (kernels, graph
+    launches, copies) of the mesh beside the single card's, the card's
+    busy milliseconds and share of the profiled wall, and the
+    milliseconds in which two or more operations ran at once.  The folded
+    500k world (two shards of 262,144 titles): the same two untimed
+    predicts, where A launches with folds=2 on both shards' folded
+    matrices (every call of A and B held against the plain version at
+    the shards' shapes; one graph a shard), then timed predicts in turns
+    with the folded main path's Matcher and the profiler pass; accuracy
+    at least 0.80 and within 0.01 of the single card's; the share of
+    rows whose mesh top-k dominates the single card's score by score is
+    printed.  The oracle sample through ``build_sharded_index`` under the
+    oracle config: D once per shard and block (the first block of each
+    shape the warm-up before its capture), A never, candidates equal to
+    the single card's bit for bit.  Training: ``quick_train_rows`` and
     ``train_model(..., mesh=)`` with the train phase's 60-round params, each
     tree equal to the train phase's bit for bit (at 50,000 titles both
     shards hold 32,768 padded titles with tb 2,048, so the candidates and
@@ -1361,6 +1372,76 @@ def construction_path(torch, Matcher, model, world, label, smi):
     return stats
 
 
+# the host's calls that launch work on a card (graph launches included) or
+# copy, as the runtime's records name them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync")
+
+
+def profile_activity(torch, fn):
+    """``fn()`` once under torch.profiler (host and device activity).
+    Returns the host's ``HOST_LAUNCH_CALLS`` (the runtime's records, from
+    every thread), the card's operations (kernels, copies, fills) and the
+    milliseconds of card 0 covered by at least one of them (busy) and by
+    two or more at once (overlap), beside the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.time() - t) * 1e3
+    calls = {name: 0 for name in HOST_LAUNCH_CALLS}
+    for ev in prof.key_averages():
+        for name in HOST_LAUNCH_CALLS:
+            if ev.key == name or ev.key.startswith(name + "_v"):
+                calls[name] += ev.count
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.device_index == 0]
+    busy = overlap = 0.0
+    depth, last = 0, None
+    for x, step in sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans]):
+        if last is not None:
+            busy += (x - last) * (depth >= 1)
+            overlap += (x - last) * (depth >= 2)
+        depth, last = depth + step, x
+    return {"wall_ms": wall_ms, "host_calls": calls, "device_ops": len(spans),
+            "busy_ms": busy / 1e3, "overlap_ms": overlap / 1e3, "busy_share": busy / 1e3 / wall_ms}
+
+
+def mesh_activity(torch, run, one, m, queries, label, smi):
+    """One predict of the single card's Matcher and one of the mesh's under
+    ``profile_activity``: the host's launches a predict, beside each other,
+    and the card's busy and overlapped milliseconds."""
+    out = {}
+    for who, matcher in (("one", one), ("mesh", m)):
+        out[who], _, _ = run(lambda: profile_activity(torch, lambda: matcher.predict(queries)),
+                             who == "mesh")
+    a, b = out["one"], out["mesh"]
+    print(f"# mesh {label} profile, one predict each under torch.profiler on {smi}: host launch "
+          f"calls single card {json.dumps(a['host_calls'])}, mesh {json.dumps(b['host_calls'])}; "
+          f"card operations {a['device_ops']} / {b['device_ops']}; card busy {a['busy_ms']:.1f} of "
+          f"{a['wall_ms']:.1f} ms ({100 * a['busy_share']:.1f} %) single card, {b['busy_ms']:.1f} of "
+          f"{b['wall_ms']:.1f} ms ({100 * b['busy_share']:.1f} %) mesh; two or more operations at "
+          f"once {a['overlap_ms']:.1f} ms single card, {b['overlap_ms']:.1f} ms mesh", flush=True)
+    return out
+
+
+def mesh_graphs(sc, label, smi, before=None):
+    """Print the mesh's CUDA graph captures and replays by name and shard
+    (replays since ``before``, a copy of an earlier ``replays``); returns
+    them."""
+    w = sc.workers
+    before = before or {}
+    replays = {name: [r - b for r, b in zip(per, before.get(name, [0] * len(per)))]
+               for name, per in w.replays.items()}
+    captures = {name: list(per) for name, per in w.captures.items()}
+    print(f"# mesh {label}: CUDA graphs captured by name and shard {json.dumps(captures)}, "
+          f"replayed {json.dumps(replays)}{' in the timed predicts' if before else ''} on {smi}",
+          flush=True)
+    return {"captures": captures, "replays": replays}
+
+
 def mesh_path(torch, counters, smi, model, refs):
     """The title-sharded mesh (``parallel/sharded.py``) on two shards of the
     one card (see the module docstring, phase 14).  ``refs`` holds the
@@ -1429,14 +1510,22 @@ def mesh_path(torch, counters, smi, model, refs):
           f"{json.dumps(m.init_seconds)} ({sc.ntp_local} "
           f"padded titles a shard, tb {sc.tb}, W {W}, a packed shard "
           f"{sc.exact[0].packed.numel() / 1e6:.1f} MB) on {smi}", flush=True)
+    # the untimed predict op by op (no graphs), every call of A and B held
+    # against the plain version; then one through the graphs, which it captures
+    sc.workers.use_graphs = False
     with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
         _, lu, untimed_s = run(lambda: m.predict(queries_x))
+    sc.workers.use_graphs = True
     t = time.time()
     check_calls(torch, jk, fk, spy_a.calls, spy_b.calls, "mesh exact untimed predict")
     check_s = time.time() - t
     del spy_a, spy_b
+    _, _, graph_s = run(lambda: m.predict(queries_x))
+    captured = mesh_graphs(sc, f"exact 150k untimed predict through the graphs ({graph_s:.3f} s)", smi)
     sc.exact[0].union_sizes.clear()
+    before = {k: list(v) for k, v in sc.workers.replays.items()}
     res, timing = turns(one, m, queries_x, "exact 150k")
+    graphs = mesh_graphs(sc, "exact 150k", smi, before)
     lx = timing["mesh_launches"]
     blocks = sum(sc.exact[0].union_sizes.values()) // 2
     acc = check_prediction(res, actual_x, len(queries_x))
@@ -1455,9 +1544,17 @@ def mesh_path(torch, counters, smi, model, refs):
     print(f"# mesh exact 150k: top-{p1.shape[1]} scores and positions of all {len(p1)} queries "
           f"equal the single card's bit for bit; predictions equal row for row (ids, titles, "
           f"stages, predictions)", flush=True)
+    if graphs["replays"]["topk"] != [2 * blocks] * 2 or not all(
+            sum(graphs["replays"].get(name, [])) for name in ("FuzzyEngine", "RerankEngine")):
+        raise AssertionError(f"the exact mesh did not replay a retrieval graph per shard and "
+                             f"block, and the fuzzy and model stages' graphs: {graphs}")
+    activity = mesh_activity(torch, run, one, m, queries_x, "exact 150k", smi)
     stats["exact"] = {"init_s": init_s, "untimed_s": untimed_s, **timing, "accuracy": acc,
                       "launches": lx, "blocks": blocks, "check_s": check_s,
-                      "untimed_launches": lu, "topk_launches": lt}
+                      "untimed_launches": lu, "topk_launches": lt, "graph_untimed_s": graph_s,
+                      "captures": captured["captures"], "replays": graphs["replays"],
+                      "profile": activity}
+    m.close()
     del m, sc, one
     torch.cuda.empty_cache()
 
@@ -1476,8 +1573,10 @@ def mesh_path(torch, counters, smi, model, refs):
     print(f"# mesh folded 500k: Matcher(mesh=2 shards of cuda:0) in {init_s:.3f} s, init_seconds "
           f"{json.dumps(m.init_seconds)} ({sc.ntp_local} titles a shard, Mc {sc.folded[0].mc.numel() / 1e6:.1f} MB a shard, "
           f"ltw {sc.folded[0].ltw}) on {smi}", flush=True)
+    sc.workers.use_graphs = False
     with Spy(fold, "score_window_select") as spy_f, Spy(features, "window_best") as spy_b:
         _, lf, untimed_s = run(lambda: m.predict(queries))
+    sc.workers.use_graphs = True
     on_shards = {id(e.mc) for e in sc.folded}
     folds2 = [c for c in spy_f.calls if c[1]["folds"] == 2 and id(c[0][0]) in on_shards]
     shards_hit = {id(c[0][0]) for c in folds2}
@@ -1485,7 +1584,11 @@ def mesh_path(torch, counters, smi, model, refs):
     check_calls(torch, jk, fk, spy_f.calls, spy_b.calls, "mesh folded untimed predict")
     check_s = time.time() - t
     del spy_f, spy_b
+    _, _, graph_s = run(lambda: m.predict(queries))
+    captured = mesh_graphs(sc, f"folded 500k untimed predict through the graphs ({graph_s:.3f} s)", smi)
+    before = {k: list(v) for k, v in sc.workers.replays.items()}
     res, timing = turns(one, m, queries, "folded 500k")
+    graphs = mesh_graphs(sc, "folded 500k", smi, before)
     acc = check_prediction(res, actual, len(queries))
     acc_one = refs["folded_accuracy"]
     (v2, _), _, _ = run(lambda: sc.topk(queries))
@@ -1500,9 +1603,17 @@ def mesh_path(torch, counters, smi, model, refs):
         raise AssertionError(f"the folded mesh did not launch A with folds=2 on each shard: {lf}")
     if abs(acc - acc_one) > 0.01:
         raise AssertionError(f"the folded mesh's accuracy {acc:.4f} is not within 0.01 of {acc_one:.4f}")
+    blocks = timing["mesh_launches"]["A"] // 2               # A launches once a shard and block
+    if graphs["replays"]["topk"] != [2 * blocks] * 2 or captured["captures"]["topk"] != [1, 1]:
+        raise AssertionError(f"the folded mesh did not replay one graph a shard for each launch "
+                             f"of A: {graphs}, {captured}, {timing['mesh_launches']}")
+    activity = mesh_activity(torch, run, one, m, queries, "folded 500k", smi)
     stats["folded"] = {"init_s": init_s, "untimed_s": untimed_s, **timing, "accuracy": acc,
                        "accuracy_single": acc_one, "dominating_rows": dominate, "launches": lf,
-                       "check_s": check_s}
+                       "check_s": check_s, "graph_untimed_s": graph_s,
+                       "captures": captured["captures"], "replays": graphs["replays"],
+                       "profile": activity}
+    m.close()
     del m, sc, one
     torch.cuda.empty_cache()
 
@@ -1517,13 +1628,17 @@ def mesh_path(torch, counters, smi, model, refs):
     blocks = sum(sc.exact[0].union_sizes.values())
     print(f"# mesh oracle sample: build_sharded_index {init_s:.3f} s (a packed shard "
           f"{sc.exact[0].packed.numel() / 1e9:.2f} GB), retrieval of {len(sample)} queries "
-          f"{dt:.3f} s on {smi}; launches {json.dumps(lo)}; candidates equal the single card's "
-          f"bit for bit: {bits_equal(v1, v2) and np.array_equal(p1, p2)}", flush=True)
+          f"{dt:.3f} s (graph captures included) on {smi}; launches {json.dumps(lo)}; candidates "
+          f"equal the single card's bit for bit: {bits_equal(v1, v2) and np.array_equal(p1, p2)}",
+          flush=True)
+    captured = mesh_graphs(sc, "oracle sample", smi)
     if lo["D"] != 2 * blocks or lo["A"] or lo["C"]:
         raise AssertionError(f"the oracle mesh did not launch D once per shard and block alone: {lo}")
     if not (bits_equal(v1, v2) and np.array_equal(p1, p2)):
         raise AssertionError("the oracle mesh's candidates differ from the single card's")
-    stats["oracle"] = {"init_s": init_s, "retrieval_s": dt, "launches": lo, "blocks": blocks}
+    stats["oracle"] = {"init_s": init_s, "retrieval_s": dt, "launches": lo, "blocks": blocks,
+                       **captured}
+    sc.close()
     del sc
     torch.cuda.empty_cache()
 
@@ -1560,8 +1675,10 @@ def mesh_path(torch, counters, smi, model, refs):
         if refused != "need 2 devices, have 1":
             raise AssertionError(f"make_mesh(2) raised {refused!r}")
     t = time.time()
-    res, lr, _ = run(lambda: Matcher(cfg_x, truth_x, model, mesh=real).predict(queries_x))
+    on_real = Matcher(cfg_x, truth_x, model, mesh=real)
+    res, lr, _ = run(lambda: on_real.predict(queries_x))
     dt = time.time() - t
+    on_real.close()
     print(f"# mesh make_mesh(): {real.size} card(s) {[str(d) for d in real.devices]}; the exact "
           f"150k Matcher and one predict {dt:.3f} s; equal to the single card's: "
           f"{same_results(res, refs['exact_res'], 0.0)}" + ("; make_mesh(2) raised "

@@ -5,7 +5,9 @@ Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
 with ``ctypes``; the ``nvcc`` processes run side by side.  The libraries
 live in ``build/torch_kernels/`` at the repository root, each named by a
 hash of its source (and the shared headers), so an edited kernel is rebuilt
-and an unchanged one is loaded as it is.
+and an unchanged one is loaded as it is.  The first call of ``lib`` builds
+and loads under a lock, so the mesh's worker threads may launch at once;
+the wrappers count their launches with ``count``, under another.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from types import SimpleNamespace
 from typing import Dict, List, Optional
@@ -42,6 +45,8 @@ _SIGNATURES = {
 }
 
 _LIB: Optional[SimpleNamespace] = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 BUILD_SECONDS: Optional[float] = None
 # source file name -> what nvcc and ptxas printed (registers, spills, shared
 # memory per kernel) when this process built it
@@ -109,16 +114,24 @@ def lib() -> SimpleNamespace:
     """Every kernel entry point as an attribute (built on first call)."""
     global _LIB
     if _LIB is None:
-        paths = build()
-        handles = {name: ctypes.CDLL(path) for name, path in paths.items()}
-        fns = {}
-        for name, (source, argtypes) in _SIGNATURES.items():
-            fn = getattr(handles[source], name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[name] = fn
-        _LIB = SimpleNamespace(**fns)
+        with _LIB_LOCK:
+            if _LIB is None:
+                paths = build()
+                handles = {name: ctypes.CDLL(path) for name, path in paths.items()}
+                fns = {}
+                for name, (source, argtypes) in _SIGNATURES.items():
+                    fn = getattr(handles[source], name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+                _LIB = SimpleNamespace(**fns)
     return _LIB
+
+
+def count(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to the launch count ``fn.<attr>`` (several threads launch)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def check(rc: int, name: str) -> None:

@@ -3,13 +3,15 @@
 Field-for-field the JAX package's ``Config`` (same names, same defaults, same
 validation), so a configuration written for one package runs the other.  The
 port reads the fields on its path (the index build, retrieval, fuzzy, model
-stage, the cascade knobs, ``serve_fused`` and ``fuzzy_tile_cap``).  Fields
-that only shape the TPU programs are kept so configurations stay
-interchangeable, and the port ignores them:
+stage, the cascade knobs, ``serve_fused`` and ``fuzzy_tile_cap``, and
+``dispatch_blocks``: the mesh's group of query blocks, as in the JAX
+package's ``shard_map`` programs).  Fields that only shape the TPU
+programs are kept so configurations stay interchangeable, and the port
+ignores them:
 
 ``window_impl``, ``retrieval_impl``, ``topk_recall_target``,
-``fold_recall_target`` (the port's top-k is exact), ``dispatch_blocks``,
-``pallas_union_chunk``, ``pair_block``, ``rerank_chunk_cap``, ``mesh_axis``.
+``fold_recall_target`` (the port's top-k is exact), ``pallas_union_chunk``,
+``pair_block``, ``rerank_chunk_cap``, ``mesh_axis``.
 """
 
 from __future__ import annotations

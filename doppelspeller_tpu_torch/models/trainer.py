@@ -238,7 +238,8 @@ def train_model(
     t0 = clock()
     truth = truth or load_ground_truth(cfg)
     train = train or load_train_data(cfg)
-    if scorer is None and mesh is not None:
+    own_mesh_scorer = scorer is None and mesh is not None
+    if own_mesh_scorer:
         from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
 
         scorer = ShardedJaccardScorer(build_truth_index(truth, cfg, dev), mesh, cfg)
@@ -249,6 +250,8 @@ def train_model(
     rng = random.Random(cfg.seed)
     t0 = clock()
     pairs = assemble_training_pairs(train, truth, scorer, cfg, rng)
+    if own_mesh_scorer:
+        scorer.close()
     timings["candidates_seconds"] = clock() - t0
     kind_counts = {
         "generated": int((pairs.kind == c.TRAINING_KIND_GENERATED).sum()),

@@ -96,7 +96,7 @@ def window_best(word_chars: torch.Tensor, word_len: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "doppel_window_best")
-    window_best.launches += 1
+    _build.count(window_best)
     return ratio, pos
 
 

@@ -45,6 +45,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from doppelspeller_tpu_torch import _build
+from doppelspeller_tpu_torch.ops import features_kernels as fk
 
 # titles per chunk of the plain versions (bounds their (U, chunk) unpacked bits)
 _PLAIN_CHUNK = 1 << 16
@@ -268,9 +269,9 @@ def score_window_select(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "doppel_score_window_select")
-    score_window_select.launches += 1
+    _build.count(score_window_select)
     if ids32 is not None:
-        score_window_select.gathered += 1
+        _build.count(score_window_select, "gathered")
     return wmax, warg
 
 
@@ -314,7 +315,7 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         rc = _build.lib().doppel_gather_rows(src.data_ptr(), ids32.data_ptr(), out.data_ptr(), U,
                                              nbytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "doppel_gather_rows")
-    gather_rows.launches += 1
+    _build.count(gather_rows)
     return out
 
 
@@ -387,7 +388,7 @@ def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, s
             int(nt), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "doppel_score_full")
-    score_full.launches += 1
+    _build.count(score_full)
     return out
 
 
@@ -517,8 +518,41 @@ def jaccard_topk_v1(packed: torch.Tensor, sums: torch.Tensor, union_ids: torch.T
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "doppel_score_sparse_topk")
-    jaccard_topk_v1.launches += 1
+    _build.count(jaccard_topk_v1)
     return vals, titles
 
 
 jaccard_topk_v1.launches = 0
+
+
+# ------------------------------------------------------- graph bookkeeping
+
+def launch_counters():
+    """(kernel wrapper, counter) of every launch count, B's too."""
+    return [(score_window_select, "launches"), (score_window_select, "gathered"),
+            (gather_rows, "launches"), (score_full, "launches"),
+            (jaccard_topk_v1, "launches"), (fk.window_best, "launches")]
+
+
+def uncounted(capture):
+    """``capture()``, a CUDA graph capture, in which the wrappers count
+    launches that do not happen; no other thread may launch meanwhile.
+    Returns (its result, the launches one replay makes, by counter), the
+    capture's counts taken back off."""
+    counters = launch_counters()
+    before = [getattr(fn, attr) for fn, attr in counters]
+    launches = []
+    try:
+        out = capture()
+    finally:
+        for (fn, attr), b in zip(counters, before):
+            launches.append(getattr(fn, attr) - b)
+            setattr(fn, attr, b)
+    return out, launches
+
+
+def count_replay(launches) -> None:
+    """Add one replay's launches (from ``uncounted``) to the counts."""
+    for (fn, attr), n in zip(launch_counters(), launches):
+        if n:
+            _build.count(fn, attr, n)

@@ -34,7 +34,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from doppelspeller_tpu_torch.ops import features_kernels as fk
 from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
 from doppelspeller_tpu_torch.ops.fold import plan_id_blocks
 from doppelspeller_tpu_torch.ops.ngram_index import plan_query_blocks
@@ -66,14 +65,6 @@ def fused_cascade(retrieval, fuzzy, rerank, ids: torch.Tensor, union_ids: Option
     stats = torch.stack([x.to(torch.float32) for x in (
         fz_matched, fz_pos, fz_mx, md_cnt, md_pos, md_mx, probe_tl, probe_wl)])
     return stats, cand
-
-
-def _launch_counters():
-    """(kernel wrapper, counter) of every launch count: a capture ticks them
-    without launching anything, a replay launches what it captured."""
-    return [(jk.score_window_select, "launches"), (jk.score_window_select, "gathered"),
-            (jk.gather_rows, "launches"), (jk.score_full, "launches"),
-            (jk.jaccard_topk_v1, "launches"), (fk.window_best, "launches")]
 
 
 def _segments(u: int, qb: int, lq: int, tlq: int) -> Tuple[List[tuple], int]:
@@ -228,15 +219,13 @@ class FusedServe:
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        counters = _launch_counters()
-        before = [getattr(fn, attr) for fn, attr in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = self.run(static_in, key)
-        launches = []
-        for (fn, attr), b in zip(counters, before):
-            launches.append(getattr(fn, attr) - b)
-            setattr(fn, attr, b)
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self._pool):
+                return self.run(static_in, key)
+
+        out, launches = jk.uncounted(capture)
         FusedServe.captures += 1
         self.capture_seconds[key] = time.time() - t
         LOGGER.info("[FusedServe] captured %s in %.3f s", key, self.capture_seconds[key])
@@ -263,8 +252,7 @@ class FusedServe:
             g.static_in.copy_(g.host_in, non_blocking=True)
             g.graph.replay()
             FusedServe.replays += 1
-            for (fn, attr), n in zip(_launch_counters(), g.launches):
-                setattr(fn, attr, getattr(fn, attr) + n)
+            jk.count_replay(g.launches)
             g.host_out.copy_(g.out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             out = g.host_out.numpy().copy()

@@ -143,7 +143,9 @@ class Matcher:
     the mesh's title axis, or, without one, built there shard by shard
     (``build_sharded_index``), and the fuzzy and model stages run
     data-parallel over the rows, on one copy of their engine per distinct
-    device.  A mesh never takes the one-dispatch path."""
+    device, each shard on its card's worker thread (the scorer's
+    ``workers``; ``close`` ends them).  A mesh never takes the one-dispatch
+    path."""
 
     def __init__(self, config: Optional[Config] = None, truth: Optional[TitleSet] = None,
                  model: Optional[GBTModel] = None, device="cuda", *,
@@ -216,11 +218,23 @@ class Matcher:
 
     def _decide(self, engine, copies, *rows, **kw):
         """``engine.decide(*rows, **kw)``; under a mesh each shard decides a
-        run of the rows on its device's copy of the engine (``copies``):
+        run of the rows on its device's copy of the engine (``copies``), on
+        the scorer's workers, all shards at once, as CUDA graphs on a card:
         each row alone, so the result is one device's."""
         if self.mesh is None:
             return engine.decide(*rows, **kw)
-        return row_parallel(self.mesh, lambda d, *part: copies[d].decide(*part, **kw), *rows)
+        graph = None
+        if self.scorer.workers.graphed:
+            if engine is self.fuzzy:
+                kw = dict(kw, static=True)     # no host sync, so a graph holds it; the same decisions
+            graph = (type(engine).__name__,) + tuple(sorted(kw.items()))
+        return row_parallel(self.scorer.workers, lambda d, *part: copies[d].decide(*part, **kw),
+                            *rows, graph=graph)
+
+    def close(self) -> None:
+        """End the mesh's worker threads (nothing to do on one device)."""
+        if self.mesh is not None:
+            self.scorer.close()
 
     def set_model(self, model: Optional[GBTModel]) -> None:
         """Take another model for stage 3 (say, one just trained) over the
@@ -229,6 +243,8 @@ class Matcher:
         self.model = model
         self._rerank: Optional[RerankEngine] = None
         self._rerank_copies = None
+        if self.mesh is not None:
+            self.scorer.workers.drop(RerankEngine.__name__)      # graphs of the old model
         self._fused = None            # the one-dispatch path, over this model
 
     @property

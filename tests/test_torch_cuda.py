@@ -12,7 +12,9 @@ top-k).  D's and E's kernels, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
 against the same program run op by op, bit for bit, and the truth index
-built on the card (``ops/index_device.py``) against the host build.
+built on the card (``ops/index_device.py``) against the host build.  The
+mesh (``parallel/sharded.py``) on two shards of the card: a stream each,
+graphs captured once per shard and shape, the single card's bits.
 """
 
 import numpy as np
@@ -616,13 +618,95 @@ def test_two_shards_of_one_card_are_the_single_card_bit_for_bit(mesh_world, scor
     a0, g0 = jk.score_window_select.launches, jk.score_window_select.gathered
     v2, p2 = mesh.scorer.topk(queries)
     n_blocks = len(queries) // cfg.query_block
-    assert jk.score_window_select.launches - a0 >= 2 * n_blocks
+    # each shard's first block of a shape is the warm-up run before its
+    # graph's capture, every other block a replay: one launch each
+    assert jk.score_window_select.launches - a0 == 2 * n_blocks
     assert jk.score_window_select.gathered - g0 == jk.score_window_select.launches - a0
     v1, p1 = one.scorer.topk(queries)
     assert np.array_equal(_bits(v1), _bits(v2)) and np.array_equal(p1, p2)
-    r1, r2 = one.predict(queries), mesh.predict(queries)
-    assert np.array_equal(r1.match_title_id, r2.match_title_id) and np.array_equal(r1.stage, r2.stage)
-    assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))
+    # one block a group, and every block op by op: the same bits
+    workers = mesh.scorer.workers
+    mesh.scorer.cfg = cfg.with_(dispatch_blocks=1)
+    workers.use_graphs = False
+    v3, p3 = mesh.scorer.topk(queries)
+    assert np.array_equal(_bits(v1), _bits(v3)) and np.array_equal(p1, p3)
+    r1, r3 = one.predict(queries), mesh.predict(queries)          # the mesh op by op
+    mesh.scorer.cfg, workers.use_graphs = cfg, True
+    r2 = mesh.predict(queries)                                     # the fuzzy and model graphs
+    assert {"FuzzyEngine", "RerankEngine"} <= set(workers.captures)
+    for r in (r2, r3):
+        assert np.array_equal(r1.match_title_id, r.match_title_id) and np.array_equal(r1.stage, r.stage)
+        assert np.array_equal(_bits(r1.prediction), _bits(r.prediction))
+    mesh.close()
+
+
+@pytest.mark.parametrize("mode", ["exact", "folded"])
+def test_mesh_graphs_are_captured_once_per_shard_and_shape_then_replayed(mesh_world, mode):
+    """Each shard captures each of its block shapes once (its first block
+    is the warm-up run's result) and replays it afterwards; the replays
+    give the op-by-op run's candidates (exact: bit for bit; folded, whose
+    coarse weights add by atomics: each a superset of the single card's,
+    score by score)."""
+    from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+    from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(retrieval_mode=mode, dispatch_blocks=2)
+    index = build_truth_index(truth, cfg)
+    sc = ShardedJaccardScorer(index, _one_card_mesh(), cfg, truth=truth)
+    n_blocks = len(queries) // cfg.query_block
+    w = sc.workers
+    a0 = jk.score_window_select.launches
+    first = sc.topk(queries)
+    keys = {key for _, key in w.graphs}
+    assert set(w.graphs) == {(i, key) for i in range(2) for key in keys}
+    assert all(key[0] == "topk" for key in keys)
+    assert w.captures["topk"] == [len(keys)] * 2
+    assert w.replays["topk"] == [n_blocks - len(keys)] * 2
+    assert jk.score_window_select.launches - a0 == 2 * n_blocks
+    second = sc.topk(queries)
+    assert w.captures["topk"] == [len(keys)] * 2 and w.replays["topk"] == [2 * n_blocks - len(keys)] * 2
+    assert jk.score_window_select.launches - a0 == 4 * n_blocks
+    w.use_graphs = False
+    eager = sc.topk(queries)
+    assert w.replays["topk"] == [2 * n_blocks - len(keys)] * 2
+    if mode == "exact":
+        for got in (first, second):
+            assert np.array_equal(_bits(got[0]), _bits(eager[0])) and np.array_equal(got[1], eager[1])
+    else:
+        v1, _ = JaccardScorer(index, cfg, "cuda", truth).topk(queries)
+        assert all((got[0] >= v1).all() for got in (first, second, eager))
+    sc.close()
+
+
+def test_two_shards_of_one_card_run_on_two_streams(mesh_world, tmp_path):
+    """``Mesh((cuda:0, cuda:0))``: one worker thread for the card, a stream
+    for each shard, neither the caller's; kernel A's replays land on two
+    streams (the profiler's trace)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+    from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
+
+    cfg, truth, queries = mesh_world
+    sc = ShardedJaccardScorer(build_truth_index(truth, cfg), _one_card_mesh(), cfg)
+    s0, s1 = sc.workers.streams
+    ids = {s0.stream_id, s1.stream_id, torch.cuda.current_stream().stream_id}
+    assert len(ids) == 3
+    sc.topk(queries)                                     # captures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sc.topk(queries)
+        torch.cuda.synchronize()
+    assert len(sc.workers._threads) == 1
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    streams = {e["args"]["stream"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel" and "score_window" in e.get("name", "")}
+    assert len(streams) == 2
+    sc.close()
 
 
 def test_folded_mesh_dominates_the_single_card(mesh_world):
@@ -683,6 +767,33 @@ def test_mesh_of_two_cards_launches_each_shard_on_its_card(mesh_world):
     r2 = mesh.predict(queries)
     assert np.array_equal(r1.match_title_id, r2.match_title_id)
     assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))
+
+
+def test_four_card_mesh_is_the_single_card_bit_for_bit(mesh_world):
+    """``make_mesh(4)``: a worker thread for each card, every shard's
+    graphs replayed on its card, and the predictions the single card's."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.parallel.sharded import make_mesh
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    model = GBTModel.load(str(MODEL))
+    one = Matcher(cfg, truth, model, device="cuda", use_index_checkpoint=False)
+    mesh = Matcher(cfg, truth, model, mesh=make_mesh(4), use_index_checkpoint=False)
+    v1, p1 = one.scorer.topk(queries)
+    mesh.predict(queries)
+    v2, p2 = mesh.scorer.topk(queries)
+    assert np.array_equal(_bits(v1), _bits(v2)) and np.array_equal(p1, p2)
+    r1, r2 = one.predict(queries), mesh.predict(queries)
+    assert np.array_equal(r1.match_title_id, r2.match_title_id) and np.array_equal(r1.stage, r2.stage)
+    assert np.array_equal(_bits(r1.prediction), _bits(r2.prediction))
+    w = mesh.scorer.workers
+    assert len(w._threads) == 4 and all(n > 0 for n in w.replays["topk"])
+    assert {g.static_in[0].device for g in w.graphs.values()} == set(mesh.mesh.devices)
+    mesh.close()
 
 
 def _same_buffers(a, b):
