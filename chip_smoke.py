@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py time-predicts [reps]   # phases 10 and 11's predicts alone
+    python3 chip_smoke.py time-cli [reps]        # the CLI's verbs, a process each
 
 Phases, each printing its seconds; any failure exits non-zero:
 
@@ -56,10 +57,12 @@ Phases, each printing its seconds; any failure exits non-zero:
    boosting rounds.  Both kernels must launch and the model must hold 60
    trees; prints the four timings, the pairs by kind, the last custom
    errors, both AUCs, peak memory and how many trees equal the committed
-   model's.  Every call of A and of B that training made is then held
-   against the plain version on the same arguments (B exactly; A to rtol
-   1e-5 against the plain gather and scoring, titles equal on untied
-   windows), and the largest call of each shape is timed.  The run's
+   model's.  Every launch of A and of B that training made must be a call
+   made op by op or part of a graph replay (retrieval captures the block
+   shapes it repeats); every call made op by op is then held against the
+   plain version on the same arguments (B exactly; A to rtol 1e-5 against
+   the plain gather and scoring, titles equal on untied windows), and the
+   largest call of each shape is timed.  The run's
    features (2,048 sampled pairs, 1e-5) and its first tree (every row; its
    f32 sums are exact, so it must be equal) are held against the port's
    CPU path.  The same training runs once more and every tree must equal
@@ -70,9 +73,18 @@ Phases, each printing its seconds; any failure exits non-zero:
    printed.
 10. folded main path: 500,000 titles x 16,384 queries (the bench world,
    seed 7), the committed 60-tree model, default Config (folded two-hash
-   retrieval, bf16 coarse weights, adaptive model depth); one untimed and
-   one timed ``Matcher.predict``; kernels A and B must launch in the timed
-   run, every stage must match rows and accuracy must reach 0.80.
+   retrieval, bf16 coarse weights, adaptive model depth); two untimed and
+   one timed ``Matcher.predict``.  The card runs a predict as the JAX
+   package runs one device: retrieval in groups of ``dispatch_blocks``
+   blocks, a CUDA graph a block shape, the fuzzy and model stages a graph a
+   padded run of rows, each graph captured in the second predict that
+   uses its shape; the first untimed predict is a one-shot process's (op
+   by op, nothing captured), the second captures the graphs (both
+   predicts' seconds and captures are printed), the timed one replays
+   them.  Kernels
+   A and B must launch in the timed run (a replay counts the launches its
+   capture recorded), every stage must match rows and accuracy must reach
+   0.80.
 11. exact main path: 150,000 titles x 16,384 queries, default Config
     (``auto`` resolves to exact: bf16, window select, so kernel A with
     folds=1 reading the union's rows through their ids); the same checks,
@@ -98,9 +110,12 @@ Phases, each printing its seconds; any failure exits non-zero:
 12. oracle anchor: the bench's exact-config oracle (f32, full matrix and
     exact top-k, model depth 0) on every 2nd query of the 500k world, the
     first 6,000; kernel D must launch and C and A must not, and the folded
-    path's accuracy on the sample must be within 0.01 of the oracle's; then
-    one more oracle predict under ``torch.profiler``: the top kernels by
-    device time and kernel D's share.
+    path's accuracy on the sample must be within 0.01 of the oracle's (that
+    first predict runs op by op); then its top-100 and predict op by op
+    (``workers.use_graphs = False``) and through the graphs (captured
+    there), which must be equal bit for bit; then one more oracle predict
+    under ``torch.profiler``: the top kernels by device time and kernel D's
+    share.
 13. v1 path: the same sample's query blocks through the v1 entry (kernel
     E, with the planner's weights and bound), launched once per block with
     no launch of C or D, which must agree with the oracle engine's kernel D
@@ -110,14 +125,16 @@ Phases, each printing its seconds; any failure exits non-zero:
 14. mesh: the title-sharded mesh (``parallel/sharded.py``) on two shards of
     the one card, ``Mesh((cuda:0, cuda:0))``: the shard boundaries,
     streams, launches and merges of two cards (one worker thread, a stream
-    a shard).  The exact 150k world (default config; two shards of 98,304
+    a shard), timed in turns with the single card's Matcher (through its
+    graphs).  The exact 150k world (default config; two shards of 98,304
     padded titles, tb 2,048 like the single card's 163,840, so the windows
     line up): ``Matcher(mesh=)`` construction seconds (built on the mesh,
     each shard's ids, frequencies, sums and matrices on its device), one
     untimed predict op by op (``workers.use_graphs = False``; every call
-    of A and B held against the plain version), one untimed predict
+    of A and B held against the plain version), two untimed predicts
     through the graphs (each shard's captures by name printed: retrieval,
-    fuzzy and model), then timed predicts in turns with a single-card
+    fuzzy and model; the first runs op by op, the second captures),
+    then timed predicts in turns with a single-card
     Matcher (single, mesh, mesh, single), where A must launch twice per
     block, every launch gathering, and each shard replay a retrieval
     graph once a block and the fuzzy and model stages' graphs; ``scorer.topk`` must equal the single card's
@@ -192,6 +209,21 @@ Phases, each printing its seconds; any failure exits non-zero:
     on the first 2,048 queries; a device build may keep no more than a
     host build.  The main paths'
     and the mesh phase's Matchers take the device build (``"auto"``).
+
+17. single_graphs (after the exact path's profiler pass, on the folded and
+    exact main paths' resident Matchers, the committed model): one predict
+    op by op (``workers.use_graphs = False``, the fuzzy stage in its
+    dynamic form) with every call of A and B held against the plain
+    version; the top-100 of all 16,384 queries op by op and through the
+    graphs, bit for bit on both worlds;
+    timed predicts in turns (graphs, op by op, op by op, graphs), each equal
+    to the op-by-op run bit for bit (ids, titles, stages, predictions), with
+    their seconds, stage seconds, launches and peak device memory; the
+    graphs captured and replayed by name, and the two untimed graphed
+    predicts' seconds (the main path's); then one predict of each under
+    torch.profiler: the host's launch calls (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, copies), the card's operations and busy share.  The
+    graphs' kernel and graph launches a predict must stay under 1,000.
 
 The line before the last is a JSON object with every kernel's route,
 source, launches in the path that carries it and in the mesh phase, error, times, bound (the
@@ -1023,7 +1055,8 @@ def train_on_card(torch, quick_train_model, cfg, truth, asset, counters):
     reset_counts(counters)
     t = time.time()
     with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b, \
-            Spy(trainer, "build_feature_matrix") as spy_x, Spy(trainer, "train_gbt") as spy_gbt:
+            Spy(trainer, "build_feature_matrix") as spy_x, Spy(trainer, "train_gbt") as spy_gbt, \
+            Spy(jk, "count_replay") as spy_r:
         model, report = quick_train_model(cfg, truth, TRAIN_ROUNDS, "cuda")
     torch.cuda.synchronize()
     seconds = time.time() - t
@@ -1059,13 +1092,19 @@ def train_on_card(torch, quick_train_model, cfg, truth, asset, counters):
         raise AssertionError(f"training launched a kernel off its path: {launches}")
     if model.num_trees != TRAIN_ROUNDS:
         raise AssertionError(f"training gave {model.num_trees} trees, not {TRAIN_ROUNDS}")
-    if (len(spy_a.calls), len(spy_b.calls)) != (launches["A"], launches["B"]):
+    # a launch is an op-by-op call (held against the plain version below) or
+    # part of a replay of the retrieval's graphs, which their warm-ups hold
+    replayed = [sum(c[0][0][j] for c in spy_r.calls) for j in (0, 5)]   # A, B (launch_counters)
+    print(f"# train: A and B called op by op {len(spy_a.calls)}, {len(spy_b.calls)} times; "
+          f"launched in graph replays {replayed[0]}, {replayed[1]} times", flush=True)
+    stats["replayed_launches"] = {"A": replayed[0], "B": replayed[1]}
+    if (len(spy_a.calls) + replayed[0], len(spy_b.calls) + replayed[1]) != (launches["A"], launches["B"]):
         raise AssertionError(f"training's calls of A and B ({len(spy_a.calls)}, {len(spy_b.calls)}) "
-                             f"are not its launches: {launches}")
+                             f"and replayed launches {replayed} are not its launches: {launches}")
     stats["kernels"] = check_train_kernels(torch, jk, fk, spy_a.calls, spy_b.calls)
     stats["against_cpu"] = check_training_against_cpu(torch, trainer, gbt, spy_x.calls[0],
                                                       spy_gbt.calls[0])
-    del spy_a, spy_b, spy_x, spy_gbt
+    del spy_a, spy_b, spy_x, spy_gbt, spy_r
     stats["repeat"] = check_training_repeats(torch, quick_train_model, cfg, truth, model, report)
     return model, stats
 
@@ -1114,9 +1153,13 @@ def check_prediction(res, actual, n):
 
 def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, need, label,
                   untimed=None):
-    """One untimed and one timed predict; returns (matcher, result, launches).
-    ``untimed`` is a context manager entered around the untimed predict
-    only, so that what it does stays out of the timed one."""
+    """Two untimed predicts and one timed one; returns (matcher, result,
+    launches, the untimed predicts' seconds and graph captures).  A graph
+    is captured in the second predict that uses its shape, so the first
+    predict is what a one-shot process pays (op by op, nothing captured)
+    and the second captures the graphs.  ``untimed`` is a
+    context manager entered around the first predict only, so that what
+    it does stays out of the timed one."""
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     t = time.time()
@@ -1126,9 +1169,22 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
           f"({matcher.index.built_on} index build)", flush=True)
     phase(f"{label}_matcher_init", t)
     t = time.time()
-    with untimed or contextlib.nullcontext():
-        matcher.predict(queries)
-    torch.cuda.synchronize()
+    first = {}
+    for nth in ("first", "second"):
+        t1 = time.time()
+        with (untimed if nth == "first" else None) or contextlib.nullcontext():
+            matcher.predict(queries)
+        torch.cuda.synchronize()
+        first[nth] = {"seconds": time.time() - t1,
+                      "captures": {k: v[0] for k, v in matcher.scorer.workers.captures.items()},
+                      "capture_s": dict(matcher.scorer.workers.capture_seconds)}
+    first["seconds"] = first["first"]["seconds"]
+    print(f"# {label} untimed predicts: the first (one-shot, op by op) "
+          f"{first['first']['seconds']:.3f} s, CUDA graphs by name "
+          f"{json.dumps(first['first']['captures'])}; the second (it captures the graphs) "
+          f"{first['second']['seconds']:.3f} s, of which captures (warm-ups included) "
+          f"{json.dumps({k: round(v, 3) for k, v in first['second']['capture_s'].items()})} s, "
+          f"{json.dumps(first['second']['captures'])}", flush=True)
     phase(f"{label}_predict_untimed", t)
     reset_counts(counters)
     if matcher.scorer.exact is not None:
@@ -1147,12 +1203,13 @@ def run_main_path(torch, Matcher, cfg, truth, queries, actual, model, counters, 
           f"{json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})}", flush=True)
     print(f"# {label} launches in the timed predict: {json.dumps(launches)}", flush=True)
     print(f"# {label} peak device memory (Matcher init and both predicts): "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, of which {resident / 1e9:.3f} GB "
-          f"were resident before", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated, of which {resident / 1e9:.3f} GB "
+          f"were resident before; {torch.cuda.max_memory_reserved() / 1e9:.3f} GB reserved in the "
+          f"process (the CUDA graphs' pools among them)", flush=True)
     missing = [k for k in need if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels {missing} were not launched on the {label} path: {launches}")
-    return matcher, res, launches
+    return matcher, res, launches, first
 
 
 SERVE_SINGLES, SERVE_OFF, SERVE_QB8 = 200, 50, 50
@@ -1442,6 +1499,114 @@ def mesh_graphs(sc, label, smi, before=None):
     return {"captures": captures, "replays": replays}
 
 
+def single_graphs_path(torch, jk, fk, counters, smi, model, worlds):
+    """One card run as the JAX package runs one device (phase 17): on each
+    smoke's resident Matcher, ``worlds`` {label: (matcher, queries, actual,
+    first graphed predict's stats)}, one predict op by op
+    (``workers.use_graphs = False``) with every call of A and B held
+    against the plain version, then timed predicts in turns (graphs, op by
+    op, op by op, graphs), each with its peak device memory, and one of
+    each under torch.profiler.  Every result and the top-100 must equal
+    the op-by-op run's bit for bit, and the graphs' host launches (kernels
+    and graph launches) a predict must stay under 1,000."""
+    from doppelspeller_tpu_torch.ops import features, fold
+
+    out = {}
+    for label, (matcher, queries, actual, first) in worlds.items():
+        w = matcher.scorer.workers
+        matcher.set_model(model)
+
+        def predict(graphs):
+            """One predict with the counts set to 0 just before it and the
+            peak memory reset: (result, launches, seconds, peak GB)."""
+            w.use_graphs = graphs
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(counters)
+            t = time.time()
+            res = matcher.predict(queries)
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            return res, read_counts(counters), dt, (torch.cuda.max_memory_allocated() / 1e9,
+                                                    torch.cuda.max_memory_reserved() / 1e9)
+
+        with Spy(jk, "score_window_select") as spy_a, Spy(fold, "score_window_select") as spy_f, \
+                Spy(features, "window_best") as spy_b:
+            ref, lo, _, _ = predict(False)
+        check_calls(torch, jk, fk, spy_a.calls + spy_f.calls, spy_b.calls,
+                    f"single_graphs {label} op-by-op predict")
+        del spy_a, spy_f, spy_b
+        predict(True)                  # set_model dropped the model stage's graphs: captures
+        topk_eager = None
+        for graphs in (False, True):
+            w.use_graphs = graphs
+            vals, pos = matcher.scorer.topk(queries)
+            torch.cuda.synchronize()
+            if topk_eager is None:
+                topk_eager = vals, pos
+        topk_same = bits_equal(topk_eager[0], vals) and bits_equal(topk_eager[1], pos)
+        rows_differing = int((topk_eager[1] != pos).any(axis=1).sum())
+        before = {k: list(v) for k, v in w.replays.items()}
+        runs = {True: [], False: []}
+        for graphs in (True, False, False, True):
+            res, launches, dt, peak = predict(graphs)
+            runs[graphs].append({"s": dt, "peak_gb": peak, "launches": launches,
+                                 "stage_s": res.stage_seconds})
+            if not (same_results(ref, res, 0.0) and bits_equal(ref.prediction, res.prediction)):
+                raise AssertionError(f"single_graphs {label}: the predict with use_graphs={graphs} "
+                                     f"differs from the op-by-op run")
+        replays = {k: v[0] - before.get(k, [0])[0] for k, v in w.replays.items()}
+        profiles = {}
+        for graphs in (True, False):
+            w.use_graphs = graphs
+            profiles[graphs] = profile_activity(torch, lambda: matcher.predict(queries))
+        w.use_graphs = True
+        acc = check_prediction(ref, actual, len(queries))
+        g, e = runs[True], runs[False]
+        calls = {k: profiles[k]["host_calls"] for k in profiles}
+        host = {k: calls[k]["cudaLaunchKernel"] + calls[k]["cudaLaunchKernelExC"] + calls[k]["cudaGraphLaunch"]
+                for k in calls}
+        print(f"# single_graphs {label}: timed predicts in turns (graphs, op by op, op by op, "
+              f"graphs), s: {g[0]['s']:.3f}, {e[0]['s']:.3f}, {e[1]['s']:.3f}, {g[1]['s']:.3f} on {smi}; "
+              f"peak device memory allocated {max(r['peak_gb'][0] for r in g):.3f} GB through the "
+              f"graphs, {max(r['peak_gb'][0] for r in e):.3f} GB op by op (reserved in the process, "
+              f"the graphs' pools and every resident Matcher with them: "
+              f"{max(r['peak_gb'][1] for r in g):.3f} / {max(r['peak_gb'][1] for r in e):.3f} GB); "
+              f"accuracy {acc:.4f}; stage_seconds "
+              f"graphs {json.dumps({k: round(v, 4) for k, v in g[-1]['stage_s'].items()})}, op by op "
+              f"{json.dumps({k: round(v, 4) for k, v in e[-1]['stage_s'].items()})}", flush=True)
+        print(f"# single_graphs {label}: the untimed predicts through the graphs: the first "
+              f"(one-shot, op by op) {first['first']['seconds']:.3f} s, the second (its "
+              f"captures) {first['second']['seconds']:.3f} s; CUDA graphs captured by name "
+              f"{json.dumps({k: v[0] for k, v in w.captures.items()})}, replayed in the two timed "
+              f"graph predicts {json.dumps(replays)}; launches a graph predict "
+              f"{json.dumps(g[-1]['launches'])}, op by op {json.dumps(e[-1]['launches'])}", flush=True)
+        print(f"# single_graphs {label} profile, one predict each under torch.profiler on {smi}: "
+              f"host launch calls through the graphs {json.dumps(calls[True])}, op by op "
+              f"{json.dumps(calls[False])}: kernels and graphs {host[True]} against {host[False]}; "
+              f"card operations {profiles[True]['device_ops']} / {profiles[False]['device_ops']}; card "
+              f"busy {profiles[True]['busy_ms']:.1f} of {profiles[True]['wall_ms']:.1f} ms "
+              f"({100 * profiles[True]['busy_share']:.1f} %) through the graphs, "
+              f"{profiles[False]['busy_ms']:.1f} of {profiles[False]['wall_ms']:.1f} ms "
+              f"({100 * profiles[False]['busy_share']:.1f} %) op by op; top-100 equal to the op-by-op "
+              f"run bit for bit: {topk_same} ({rows_differing} rows differ)", flush=True)
+        if not topk_same:
+            raise AssertionError(f"single_graphs {label}: the graphs' top-100 differs from the "
+                                 f"op-by-op run on {rows_differing} rows")
+        if not 0 < host[True] < 1000 or not all(replays.get(k) for k in ("topk", "FuzzyEngine",
+                                                                        "RerankEngine")):
+            raise AssertionError(f"single_graphs {label}: {host[True]} kernel and graph launches a "
+                                 f"predict, replays {replays}")
+        out[label] = {"graphs_s": [r["s"] for r in g], "eager_s": [r["s"] for r in e],
+                      "peak_gb_graphs": [r["peak_gb"] for r in g],
+                      "peak_gb_eager": [r["peak_gb"] for r in e], "first_graph_predict": first,
+                      "captures": {k: v[0] for k, v in w.captures.items()}, "replays": replays,
+                      "launches_graphs": g[-1]["launches"], "launches_eager": lo,
+                      "host_launches": host, "profile": {str(k): v for k, v in profiles.items()},
+                      "topk_equal": topk_same, "accuracy": acc}
+    return out
+
+
 def mesh_path(torch, counters, smi, model, refs):
     """The title-sharded mesh (``parallel/sharded.py``) on two shards of the
     one card (see the module docstring, phase 14).  ``refs`` holds the
@@ -1496,7 +1661,8 @@ def mesh_path(torch, counters, smi, model, refs):
     # ---- exact, 150k titles x 16,384 queries ----
     cfg_x, truth_x, queries_x, actual_x = refs["exact_world"]
     one = Matcher(cfg_x, truth_x, model, device="cuda")
-    one.predict(queries_x)
+    for _ in range(2):                     # the first op by op, the second captures
+        one.predict(queries_x)
     t = time.time()
     m = Matcher(cfg_x, truth_x, model, mesh=mesh)
     torch.cuda.synchronize()
@@ -1511,7 +1677,8 @@ def mesh_path(torch, counters, smi, model, refs):
           f"padded titles a shard, tb {sc.tb}, W {W}, a packed shard "
           f"{sc.exact[0].packed.numel() / 1e6:.1f} MB) on {smi}", flush=True)
     # the untimed predict op by op (no graphs), every call of A and B held
-    # against the plain version; then one through the graphs, which it captures
+    # against the plain version; then two through the graphs, which capture
+    # the shapes used twice (the first) and the rest (the second)
     sc.workers.use_graphs = False
     with Spy(jk, "score_window_select") as spy_a, Spy(features, "window_best") as spy_b:
         _, lu, untimed_s = run(lambda: m.predict(queries_x))
@@ -1520,8 +1687,9 @@ def mesh_path(torch, counters, smi, model, refs):
     check_calls(torch, jk, fk, spy_a.calls, spy_b.calls, "mesh exact untimed predict")
     check_s = time.time() - t
     del spy_a, spy_b
-    _, _, graph_s = run(lambda: m.predict(queries_x))
-    captured = mesh_graphs(sc, f"exact 150k untimed predict through the graphs ({graph_s:.3f} s)", smi)
+    graph_s = [run(lambda: m.predict(queries_x))[2] for _ in range(2)]
+    captured = mesh_graphs(sc, f"exact 150k untimed predicts through the graphs "
+                               f"({graph_s[0]:.3f}, {graph_s[1]:.3f} s)", smi)
     sc.exact[0].union_sizes.clear()
     before = {k: list(v) for k, v in sc.workers.replays.items()}
     res, timing = turns(one, m, queries_x, "exact 150k")
@@ -1584,8 +1752,9 @@ def mesh_path(torch, counters, smi, model, refs):
     check_calls(torch, jk, fk, spy_f.calls, spy_b.calls, "mesh folded untimed predict")
     check_s = time.time() - t
     del spy_f, spy_b
-    _, _, graph_s = run(lambda: m.predict(queries))
-    captured = mesh_graphs(sc, f"folded 500k untimed predict through the graphs ({graph_s:.3f} s)", smi)
+    graph_s = [run(lambda: m.predict(queries))[2] for _ in range(2)]
+    captured = mesh_graphs(sc, f"folded 500k untimed predicts through the graphs "
+                               f"({graph_s[0]:.3f}, {graph_s[1]:.3f} s)", smi)
     before = {k: list(v) for k, v in sc.workers.replays.items()}
     res, timing = turns(one, m, queries, "folded 500k")
     graphs = mesh_graphs(sc, "folded 500k", smi, before)
@@ -2015,10 +2184,15 @@ def run_cli_path(torch, counters, smi):
 def time_predicts(torch, reps):
     """``python3 chip_smoke.py time-predicts [reps]``: the two 16,384-query
     main paths alone (folded 500k, exact 150k; default config, the
-    committed model), one untimed predict and ``reps`` timed ones each, no
-    profiler in the process; every rep's seconds and stage seconds, then
-    the medians as one JSON line.  It times the package beside this file,
-    so a copy of it placed in another checkout times that one."""
+    committed model), two untimed predicts (the first is a one-shot
+    process's, op by op; the second captures the graphs) and ``reps``
+    timed ones each, no profiler in the process; every rep's seconds and
+    stage seconds, then the medians, the untimed predicts' seconds and
+    stage seconds, the captures' seconds by name, and the timed reps' peak
+    device memory (allocated, and reserved by the caching allocator, which
+    holds the CUDA graphs' pools) as one JSON line.  It times the package
+    beside this file, so a copy of it placed in another checkout times
+    that one."""
     from doppelspeller_tpu_torch.config import Config
     from doppelspeller_tpu_torch.models.gbt import GBTModel
     from doppelspeller_tpu_torch.pipeline import Matcher
@@ -2030,7 +2204,15 @@ def time_predicts(torch, reps):
         cfg, truth, queries, actual = make_synthetic_world(
             n_titles, N_QUERIES, seed=SEED, config=Config(data_path=os.path.join(ROOT, "data")))
         matcher = Matcher(cfg, truth, model, device="cuda")
-        matcher.predict(queries)
+        untimed, untimed_stages = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = matcher.predict(queries)
+            torch.cuda.synchronize()
+            untimed.append(time.time() - t)
+            untimed_stages.append(res.stage_seconds)
+        torch.cuda.reset_peak_memory_stats()
         secs = []
         for r in range(reps):
             torch.cuda.synchronize()
@@ -2042,10 +2224,66 @@ def time_predicts(torch, reps):
                   f"{json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})}", flush=True)
         med = statistics.median(secs)
         out[label] = {"median_s": med, "q_per_s": N_QUERIES / med, "seconds": secs,
+                      "first_predict_s": untimed[0], "second_predict_s": untimed[1],
+                      "untimed_stage_s": untimed_stages,
+                      "capture_s": dict(getattr(getattr(matcher.scorer, "workers", None),
+                                                "capture_seconds", {})),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                       "accuracy": float((res.match_title_id == actual).mean())}
         del matcher
         torch.cuda.empty_cache()
     print(json.dumps({"checkout": ROOT, "predicts": out}), flush=True)
+    return 0
+
+
+CLI_VERBS = ("train-model", "generate-predictions")
+
+
+def time_cli(torch, reps):
+    """``python3 chip_smoke.py time-cli [reps]``: the command-line verbs as a
+    user runs them, each in a process of its own (``python -m
+    doppelspeller_tpu_torch.cli VERB``, Python's start, the imports and the
+    card's set-up included), on the cli phase's example set, written once
+    into a temporary directory: ``build-index``, a round of ``train-model``
+    and ``generate-predictions`` that builds the kernels, then ``reps``
+    timed rounds.  Prints each process's seconds by the host clock around
+    it, then the medians and the accuracy of the last predictions file as
+    one JSON line.  It runs the package beside this file, so a copy of it
+    placed in another checkout times that one."""
+    import tempfile
+
+    from doppelspeller_tpu_torch.config import Config
+    from doppelspeller_tpu_torch.synthetic import make_synthetic_world
+
+    del torch                              # each verb is a process of its own
+    secs = {v: [] for v in ("build-index",) + CLI_VERBS}
+    with tempfile.TemporaryDirectory(prefix="doppel_time_cli_") as data:
+        write_example_set(make_synthetic_world, Config(data_path=data), data)
+        env = dict(os.environ, PROJECT_DATA_PATH=data, PYTHONPATH=ROOT)
+
+        def verb(name, label):
+            t = time.time()
+            done = subprocess.run([sys.executable, "-m", "doppelspeller_tpu_torch.cli", name],
+                                  cwd=ROOT, env=env, capture_output=True, text=True)
+            dt = time.time() - t
+            if done.returncode != 0:
+                raise AssertionError(f"time-cli: {name} exited {done.returncode}: {done.stderr[-2000:]}")
+            print(f"# time-cli {label} {name}: {dt:.3f} s", flush=True)
+            return dt, done.stdout
+
+        secs["build-index"].append(verb("build-index", "once")[0])
+        for r in range(-1, reps):
+            for name in CLI_VERBS:
+                dt, out = verb(name, "warm-up" if r < 0 else f"rep {r}")
+                if r >= 0:
+                    secs[name].append(dt)
+        report = verb("get-predictions-accuracy", "once")[1]
+    matched = re.search(r"Correctly matched titles\s+(\d+)", report)
+    out = {"checkout": ROOT, "seconds": secs,
+           "median_s": {k: statistics.median(v) for k, v in secs.items()},
+           "correctly_matched": int(matched.group(1)) if matched else None}
+    print(json.dumps({"time_cli": out}), flush=True)
     return 0
 
 
@@ -2066,6 +2304,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["time-predicts"]:
         return time_predicts(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 5)
+    if sys.argv[1:2] == ["time-cli"]:
+        return time_cli(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     from doppelspeller_tpu_torch import _build
     from doppelspeller_tpu_torch.ops import features_kernels as fk
     from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
@@ -2155,8 +2395,8 @@ def main() -> int:
     from doppelspeller_tpu_torch.ops import features
 
     slab = Spy(features, "window_best")
-    folded, res, la = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
-                                    counters, ("A", "B"), "folded", untimed=slab)
+    folded, res, la, first_f = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
+                                             counters, ("A", "B"), "folded", untimed=slab)
     if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E", "A gathering")):
         raise AssertionError(f"the 500k default config left the folded path: {la}")
     t = time.time()
@@ -2199,8 +2439,8 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     phase("construction", t)
-    exact, res_x, lx = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x, model,
-                                     counters, ("A", "B"), "exact")
+    exact, res_x, lx, first_x = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x,
+                                              model, counters, ("A", "B"), "exact")
     if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"]
             or lx["A gathering"] != lx["A"]):
         raise AssertionError(f"the 150k default config did not take exact retrieval with A "
@@ -2220,6 +2460,11 @@ def main() -> int:
     t = time.time()
     profile_predict(torch, exact, queries_x, "exact", ("A", "score_window_kernel"))
     phase("exact_profile", t)
+    t = time.time()
+    single = single_graphs_path(torch, jk, fk, counters, smi, model, {
+        "folded 500k": (folded, queries, actual, first_f),
+        "exact 150k": (exact, queries_x, actual_x, first_x)})
+    phase("single_graphs", t)
     build_150k = packed_build_seconds(exact)
     # the single card's references for the mesh phase
     exact_topk, exact_tb = exact.scorer.topk(queries_x), exact.scorer.exact.tb
@@ -2255,6 +2500,23 @@ def main() -> int:
         raise AssertionError(f"the oracle config did not run D alone (no C, no A): {lo}")
     if acc_fast < acc_oracle - ORACLE_DELTA:
         raise AssertionError(f"fast accuracy {acc_fast:.4f} < oracle {acc_oracle:.4f} - {ORACLE_DELTA}")
+    # the oracle's top-100 and predict through its graphs (the predict above
+    # was its first run, op by op; these capture them) against op by op
+    w_o, topk_o = oracle.scorer.workers, {}
+    for graphs in (False, True):
+        w_o.use_graphs = graphs
+        topk_o[graphs] = oracle.scorer.topk(sample)
+    w_o.use_graphs = False
+    r_e = oracle.predict(sample)
+    w_o.use_graphs = True
+    r_g = oracle.predict(sample)
+    same_o = (bits_equal(topk_o[True][0], topk_o[False][0]) and bits_equal(topk_o[True][1], topk_o[False][1])
+              and all(same_results(r, r_e, 0.0) and bits_equal(r.prediction, r_e.prediction)
+                      for r in (r_o, r_g)))
+    print(f"# oracle through its graphs (captured {json.dumps({k: v[0] for k, v in w_o.captures.items()})}) "
+          f"against op by op: top-{cfg_o.top_n_predicting} and predictions equal bit for bit: {same_o}", flush=True)
+    if not same_o:
+        raise AssertionError("the oracle's graphs differ from its op-by-op run")
     profile_predict(torch, oracle, sample, "oracle", ("D", "score_full_kernel"))
     build_500k = packed_build_seconds(oracle)
     phase("oracle", t)
@@ -2301,7 +2563,7 @@ def main() -> int:
             "exact_topk": exact_topk, "exact_tb": exact_tb,
             "folded_world": (cfg, truth, queries, actual), "folded_accuracy": acc_asset,
             "folded_topk": folded.scorer.topk(queries)[0], "folded_matcher": folded,
-            "oracle_sample": sample, "oracle_cfg": cfg_o, "oracle_topk": oracle.scorer.topk(sample),
+            "oracle_sample": sample, "oracle_cfg": cfg_o, "oracle_topk": topk_o[True],
             "train_model": own_model}
     del oracle, folded
     torch.cuda.empty_cache()
@@ -2381,6 +2643,7 @@ def main() -> int:
     print(f"# cli {json.dumps(cli_stats)}", flush=True)
     print(f"# serve_fused {json.dumps(serve)}", flush=True)
     print(f"# mesh {json.dumps(mesh_stats)}", flush=True)
+    print(f"# single_graphs {json.dumps(single)}", flush=True)
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,9 @@ Field-for-field the JAX package's ``Config`` (same names, same defaults, same
 validation), so a configuration written for one package runs the other.  The
 port reads the fields on its path (the index build, retrieval, fuzzy, model
 stage, the cascade knobs, ``serve_fused`` and ``fuzzy_tile_cap``, and
-``dispatch_blocks``: the mesh's group of query blocks, as in the JAX
-package's ``shard_map`` programs).  Fields that only shape the TPU
+``dispatch_blocks``: retrieval's group of query blocks, one upload each,
+on one device and on a mesh, as in the JAX package's ``topk_device`` and
+``shard_map`` programs).  Fields that only shape the TPU
 programs are kept so configurations stay interchangeable, and the port
 ignores them:
 

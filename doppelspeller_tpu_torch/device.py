@@ -8,6 +8,7 @@ raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,13 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued device work (so host timings cover it)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``, on the current stream, without a host sync: on a
+    card through pinned memory (a copy from pageable memory waits for the
+    stream); on the CPU the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -238,19 +238,19 @@ def train_model(
     t0 = clock()
     truth = truth or load_ground_truth(cfg)
     train = train or load_train_data(cfg)
-    own_mesh_scorer = scorer is None and mesh is not None
-    if own_mesh_scorer:
+    own_scorer = scorer is None
+    if own_scorer and mesh is not None:
         from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
 
         scorer = ShardedJaccardScorer(build_truth_index(truth, cfg, dev), mesh, cfg)
-    elif scorer is None:
+    elif own_scorer:
         scorer = JaccardScorer(build_truth_index(truth, cfg, dev), cfg, dev)
     timings["setup_seconds"] = clock() - t0
 
     rng = random.Random(cfg.seed)
     t0 = clock()
     pairs = assemble_training_pairs(train, truth, scorer, cfg, rng)
-    if own_mesh_scorer:
+    if own_scorer:
         scorer.close()
     timings["candidates_seconds"] = clock() - t0
     kind_counts = {

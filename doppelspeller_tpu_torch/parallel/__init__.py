@@ -1,1 +1,2 @@
-"""Multi-device execution (``sharded.py``)."""
+"""Running on cards: the workers (``workers.py``), which drive one device
+or a mesh, and the title-sharded mesh (``sharded.py``)."""

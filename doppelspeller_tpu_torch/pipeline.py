@@ -31,9 +31,25 @@ model bucket, and rows over a capped fuzzy tile (``fuzzy_tile_cap``), go
 through the reference's host stages (``_stage_fuzzy``, ``_stage_model``),
 which index the truth arrays with numpy as the reference does.
 
-The TPU package's static slab and bucket shapes exist for XLA recompiles;
-here the rows are only grouped by the (TL, WL) bucket their candidates need
-and taken ``model_slab`` at a time.  Results do not depend on that padding.
+The batch cascade follows the JAX package's plan for one device (its
+``_cascade_device``: every stage queued, a fetch between stages).
+Retrieval goes in groups of ``dispatch_blocks`` query blocks
+(``ops/jaccard.py``); both later stages take ``model_slab`` rows at a time
+(the fuzzy stage of a tile bucket, the model stage of a (TL, WL) bucket),
+each slab through ``row_parallel`` on the scorer's workers: on a card a
+CUDA graph of the slab padded to a power of two of at least 64 rows.  A
+predict is one run of the workers (``Workers.run``): a shape runs op by
+op through the first predict that uses it and is captured in the next,
+so a one-shot predict (``generate-predictions``) captures nothing.
+The powers of two are ``row_parallel``'s, the rule the mesh graphs with,
+so one device and a mesh share one path; the slabs are the JAX package's
+model-stage slabs, which bound a graph's pool and a bucket's padding:
+every full slab is one shape, and only a bucket's last slab pads, to
+under twice its rows (a bucket of 10,357 rows padded whole would take
+16,384).  Uploads go through pinned memory, and each stage's results are
+fetched once (the model stage's once a wave), so no host sync falls
+inside a stage once its shapes are graphs.  Results do not depend on the
+padding, the groups or the graphs: every row is decided alone.
 """
 
 from __future__ import annotations
@@ -48,7 +64,7 @@ import numpy as np
 import torch
 
 from doppelspeller_tpu_torch.config import Config, get_config
-from doppelspeller_tpu_torch.device import resolve_device, synchronize
+from doppelspeller_tpu_torch.device import resolve_device, synchronize, upload
 from doppelspeller_tpu_torch.models.gbt import GBTModel
 from doppelspeller_tpu_torch.models.trainer import WordCounts
 from doppelspeller_tpu_torch.ops.features import remove_spaces_host, split_words_host
@@ -56,13 +72,8 @@ from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, checkpoint_holds
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
-from doppelspeller_tpu_torch.parallel.sharded import (
-    Mesh,
-    ShardedJaccardScorer,
-    build_sharded_index,
-    replicate,
-    row_parallel,
-)
+from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer, build_sharded_index
+from doppelspeller_tpu_torch.parallel.workers import Mesh, replicate, row_parallel
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet, as_int64, load_ground_truth, read_csv
 
@@ -109,6 +120,17 @@ class PredictionResult:
 # under cascade_impl="auto" the adaptive-depth waves start at this many rows
 # past the exact stage (the JAX package's threshold)
 DEVICE_CASCADE_MIN_ROWS = 2048
+
+
+def fetch(outs: List[tuple]) -> List[np.ndarray]:
+    """The results of a stage's calls, each a tuple of (R_i,) device
+    tensors: each output concatenated over the calls and brought to the
+    host in one copy, in its own dtype."""
+    cols = [torch.cat(c) for c in zip(*outs)]
+    packed = torch.stack([(c.view(torch.int32) if c.dtype == torch.float32 else c).to(torch.int64)
+                          for c in cols]).cpu().numpy()
+    return [p.astype(np.int32).view(np.float32) if c.dtype == torch.float32
+            else p.astype(torch.empty(0, dtype=c.dtype).numpy().dtype) for p, c in zip(packed, cols)]
 
 
 def _groupby_max_unique(q_idx: np.ndarray, values: np.ndarray, n_queries: int):
@@ -191,7 +213,7 @@ class Matcher:
         self.ts_truth = (ts_enc, ts_len)
         self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                  config, self.device)
-        self._fuzzy_copies = replicate(self.fuzzy, mesh) if mesh is not None else None
+        self._fuzzy_copies = replicate(self.fuzzy, self.scorer.workers.mesh)
         self._word_counts: Optional[np.ndarray] = None
         self.set_model(model)
         # construction seconds by the host clock after a synchronize: the
@@ -217,24 +239,29 @@ class Matcher:
         return None
 
     def _decide(self, engine, copies, *rows, **kw):
-        """``engine.decide(*rows, **kw)``; under a mesh each shard decides a
-        run of the rows on its device's copy of the engine (``copies``), on
-        the scorer's workers, all shards at once, as CUDA graphs on a card:
-        each row alone, so the result is one device's."""
-        if self.mesh is None:
-            return engine.decide(*rows, **kw)
-        graph = None
-        if self.scorer.workers.graphed:
-            if engine is self.fuzzy:
-                kw = dict(kw, static=True)     # no host sync, so a graph holds it; the same decisions
-            graph = (type(engine).__name__,) + tuple(sorted(kw.items()))
-        return row_parallel(self.scorer.workers, lambda d, *part: copies[d].decide(*part, **kw),
-                            *rows, graph=graph)
+        """``engine.decide(*rows, **kw)`` on the scorer's workers
+        (``row_parallel``): each shard decides a run of the rows on its
+        device's copy of the engine (``copies``; None: ``engine`` itself,
+        one device), all shards at once (one device: one shard, every
+        row).  On a card each run, padded to a power of two of at least 64
+        rows, is a CUDA graph of (stage, settings, padded shape) from the
+        second run that uses it (op by op before); in a graph the fuzzy
+        stage takes its static form, which makes no host sync and decides
+        the same.  Each row is
+        decided alone, so the result is one device's op by op."""
+        workers = self.scorer.workers
+        copies = copies or {d: engine for d in workers.mesh.distinct}
+        graph = graph_kw = None
+        if workers.graphed:
+            graph_kw = dict(kw, static=True) if engine is self.fuzzy else kw
+            graph = (type(engine).__name__,) + tuple(sorted(graph_kw.items()))
+        return row_parallel(workers, lambda d, *part: copies[d].decide(*part, **kw), *rows,
+                            graph=graph,
+                            graph_run=lambda d, *part: copies[d].decide(*part, **graph_kw))
 
     def close(self) -> None:
-        """End the mesh's worker threads (nothing to do on one device)."""
-        if self.mesh is not None:
-            self.scorer.close()
+        """End the scorer's worker threads."""
+        self.scorer.close()
 
     def set_model(self, model: Optional[GBTModel]) -> None:
         """Take another model for stage 3 (say, one just trained) over the
@@ -243,8 +270,7 @@ class Matcher:
         self.model = model
         self._rerank: Optional[RerankEngine] = None
         self._rerank_copies = None
-        if self.mesh is not None:
-            self.scorer.workers.drop(RerankEngine.__name__)      # graphs of the old model
+        self.scorer.workers.drop(RerankEngine.__name__)      # graphs of the old model
         self._fused = None            # the one-dispatch path, over this model
 
     @property
@@ -259,8 +285,7 @@ class Matcher:
             self._rerank = RerankEngine(self.truth.encoded, self.truth.lengths, self.truth_words,
                                         self._word_counts, self.model, len(self.truth), self.cfg,
                                         self.device)
-            if self.mesh is not None:
-                self._rerank_copies = replicate(self._rerank, self.mesh)
+            self._rerank_copies = replicate(self._rerank, self.scorer.workers.mesh)
         return self._rerank
 
     def _use_fused(self, rem: np.ndarray, impl: str) -> bool:
@@ -405,37 +430,28 @@ class Matcher:
         t_retr = time.time()
         res.stage_seconds["retrieval"] = t_retr - t0
 
-        # ---- stage 2: fuzzy, per tile bucket ----
+        # ---- stage 2: fuzzy, per tile bucket (a run of ``rem``, which is
+        # sorted by bucket) in slabs of ``model_slab`` rows, as the model
+        # stage; the rows uploaded once, the results fetched once
+        slab = int(cfg.model_slab)
         cap = int(cfg.fuzzy_tile_cap)
         cap_tl = max([b for b in buckets if b <= cap] or [buckets[0]])
-        R = len(rem)
+        L = cfg.max_characters
         ts_enc_all, ts_len_all = queries.encoded_token_sorted
-        matched = np.zeros(R, bool)
-        over_rows = np.zeros(R, bool)
-        best_pos = np.zeros(R, np.int64)
-        probe_tl = np.zeros(R, np.int64)
-        probe_wl = np.zeros(R, np.int64)
+        q_enc, q_len, q_ts, q_ts_len = (upload(x, dev) for x in (
+            queries.encoded[rem], queries.lengths[rem], ts_enc_all[rem, :L], ts_len_all[rem]))
+        outs = []
         for bi in np.unique(fzb):
-            sel = np.flatnonzero(fzb == bi)
+            lo, hi = np.searchsorted(fzb, bi), np.searchsorted(fzb, bi, side="right")
             TL = int(buckets_arr[bi])
             if cap:
                 TL = min(TL, cap_tl)
-            src = rem[sel]
-            sel_d = torch.from_numpy(sel).to(dev)
-            out = self._decide(
-                self.fuzzy, self._fuzzy_copies,
-                torch.from_numpy(np.ascontiguousarray(queries.encoded[src, :TL])).to(dev),
-                torch.from_numpy(queries.lengths[src]).to(dev),
-                torch.from_numpy(np.ascontiguousarray(ts_enc_all[src, :TL])).to(dev),
-                torch.from_numpy(ts_len_all[src]).to(dev),
-                cand[sel_d], tl=TL,
-            )
-            m, bp, _ratio, over, ptl, pwl = (x.cpu().numpy() for x in out)
-            matched[sel] = m & ~over
-            over_rows[sel] = over
-            best_pos[sel] = bp
-            probe_tl[sel] = ptl
-            probe_wl[sel] = pwl
+            for a in range(lo, hi, slab):
+                b = min(a + slab, hi)
+                outs.append(self._decide(self.fuzzy, self._fuzzy_copies, q_enc[a:b, :TL], q_len[a:b],
+                                         q_ts[a:b, :TL], q_ts_len[a:b], cand[a:b], tl=TL))
+        m, best_pos, _ratio, over_rows, probe_tl, probe_wl = fetch(outs)
+        matched = m & ~over_rows
         hits = 0
         for j in np.flatnonzero(matched):
             self._record(res, rem[j], int(best_pos[j]), 1.0, STAGE_FUZZY)
@@ -466,43 +482,42 @@ class Matcher:
         tbi = np.maximum(tbi, np.searchsorted(buckets_arr, w_arr)[wbi])
 
         wo_enc, wo_len = queries.encoded_wo
-        q_enc_d = torch.from_numpy(np.ascontiguousarray(queries.encoded[gq])).to(dev)
-        q_len_d = torch.from_numpy(queries.lengths[gq]).to(dev)
-        q_wo_d = torch.from_numpy(np.ascontiguousarray(wo_enc[gq])).to(dev)
-        q_wo_len_d = torch.from_numpy(wo_len[gq]).to(dev)
-        cand_todo = cand[torch.from_numpy(todo).to(dev)]
-        slab = int(cfg.model_slab)
+        todo_d = upload(todo, dev)
+        q_enc_d, q_len_d, cand_todo = q_enc[todo_d], q_len[todo_d], cand[todo_d]
+        q_wo_d, q_wo_len_d = upload(wo_enc[gq], dev), upload(wo_len[gq], dev)
         n = len(todo)
 
         def run_wave(rows_t: np.ndarray, narrow: int, col_lo: int = 0):
             """(cnt, pos, mx) host arrays over todo rows ``rows_t`` (others
             left at cnt 0, mx −inf), and (slabs, seconds to dispatch them,
-            seconds to fetch their results)."""
+            seconds to fetch their results): the slabs' rows uploaded once,
+            their results fetched once."""
             t_w = time.time()
-            pend = []
-            rerank = self.rerank                  # built (and copied to the mesh) at first use
+            slabs = []
             for ti, TL in enumerate(buckets):
                 for wi, WL in enumerate(w_buckets):
                     if WL > TL:
                         continue
                     sub = rows_t[(tbi[rows_t] == ti) & (wbi[rows_t] == wi)]
-                    for s in range(0, len(sub), slab):
-                        sl = sub[s : s + slab]
-                        sl_d = torch.from_numpy(sl).to(dev)
-                        pend.append((sl, self._decide(
-                            rerank, self._rerank_copies,
-                            q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
-                            cand_todo[sl_d], tl=TL, wl=WL, narrow=narrow, col_lo=col_lo,
-                        )))
+                    slabs += [(sub[s : s + slab], TL, WL) for s in range(0, len(sub), slab)]
+            sel = np.concatenate([sl for sl, _, _ in slabs])
+            sel_d = upload(sel, dev)
+            rerank = self.rerank                  # built (and copied to the mesh) at first use
+            outs, o = [], 0
+            for sl, TL, WL in slabs:
+                sl_d = sel_d[o : o + len(sl)]
+                o += len(sl)
+                outs.append(self._decide(
+                    rerank, self._rerank_copies,
+                    q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
+                    cand_todo[sl_d], tl=TL, wl=WL, narrow=narrow, col_lo=col_lo,
+                ))
             t_d = time.time()
             cnt = np.zeros(n, np.int64)
             pos = np.zeros(n, np.int64)
             mx = np.full(n, -np.inf, np.float32)
-            for sl, (c, p, m) in pend:
-                cnt[sl] = c.cpu().numpy()
-                pos[sl] = p.cpu().numpy()
-                mx[sl] = m.cpu().numpy()
-            return cnt, pos, mx, (len(pend), t_d - t_w, time.time() - t_d)
+            cnt[sel], pos[sel], mx[sel] = fetch(outs)
+            return cnt, pos, mx, (len(slabs), t_d - t_w, time.time() - t_d)
 
         def apply(rows_t, cnt, pos, mx) -> int:
             thr = cfg.prediction_probability_threshold
@@ -599,7 +614,8 @@ class Matcher:
         if len(rem) and not waves and self._use_fused(rem, impl):
             self._fused_engine().match(queries, rem, res, single)
         elif len(rem):
-            self._cascade_device(queries, rem, res, waves=waves, single=single)
+            with self.scorer.workers.run():                # one run of the graphs' rule
+                self._cascade_device(queries, rem, res, waves=waves, single=single)
         LOGGER.info("Matched %d/%d titles (exact %d, fuzzy %d, model %d)",
                     int((res.stage != STAGE_NONE).sum()), n, res.stage_counts["exact"],
                     res.stage_counts["fuzzy"], res.stage_counts["model"])

@@ -13,9 +13,14 @@ rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
 against the same program run op by op, bit for bit, and the truth index
 built on the card (``ops/index_device.py``) against the host build.  The
-mesh (``parallel/sharded.py``) on two shards of the card: a stream each,
+single card's graphs (retrieval, fuzzy and model stages) against its run
+op by op, bit for bit (two k on one scorer too), its host launches a
+predict, and a failed capture.  The mesh
+(``parallel/sharded.py``) on two shards of the card: a stream each,
 graphs captured once per shard and shape, the single card's bits.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -600,6 +605,122 @@ def _one_card_mesh(n=2):
     return Mesh((torch.device("cuda", 0),) * n)
 
 
+@pytest.mark.parametrize("mode", ["exact", "folded"])
+def test_single_card_graphs_are_its_op_by_op_run_bit_for_bit(mesh_world, mode):
+    """One card run as the JAX package runs one device: retrieval a graph a
+    block shape, the fuzzy and model stages a graph a padded run of rows,
+    each captured in the second predict that uses it.  Its predicts (the
+    first op by op, the second captures, the third replays) and top-100 equal the same Matcher's with
+    ``workers.use_graphs = False`` (op by op, the fuzzy stage in its
+    dynamic form) bit for bit: scores, positions, ids, stages and
+    predictions (bf16 coarse weights on the folded engine)."""
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(retrieval_mode=mode, cascade_impl="device")
+    m = Matcher(cfg, truth, GBTModel.load(str(MODEL)), device="cuda", use_index_checkpoint=False)
+    w = m.scorer.workers
+    w.use_graphs = False
+    v0, p0 = m.scorer.topk(queries)
+    r0 = m.predict(queries)
+    assert not w.graphs
+    w.use_graphs = True
+    results = [m.predict(queries) for _ in range(3)]
+    v1, p1 = m.scorer.topk(queries)
+    assert {"topk", "FuzzyEngine", "RerankEngine"} <= set(w.captures)
+    assert all(sum(w.replays[name]) for name in ("topk", "FuzzyEngine", "RerankEngine"))
+    assert np.array_equal(_bits(v0), _bits(v1)) and np.array_equal(p0, p1)
+    for r in results:
+        assert np.array_equal(r0.match_title_id, r.match_title_id) and np.array_equal(r0.stage, r.stage)
+        assert np.array_equal(_bits(r0.prediction), _bits(r.prediction))
+    assert all(r0.stage_counts[s] > 0 for s in ("exact", "fuzzy", "model"))
+    m.close()
+
+
+@pytest.mark.parametrize("mode", ["exact", "folded"])
+def test_single_card_graphs_hold_each_k(mesh_world, mode):
+    """One graphed scorer asked for the top 100, then the top 10, each
+    twice (the second call of each replays its graphs): every call equal
+    to the same scorer's with ``workers.use_graphs = False`` bit for bit,
+    and each k has graphs of its own."""
+    from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+
+    cfg, truth, queries = mesh_world
+    cfg = cfg.with_(retrieval_mode=mode)
+    sc = JaccardScorer(build_truth_index(truth, cfg), cfg, "cuda", truth)
+    w = sc.workers
+    for k in (100, 100, 10, 10):
+        w.use_graphs = False
+        v0, p0 = sc.topk(queries, k=k)
+        w.use_graphs = True
+        v1, p1 = sc.topk(queries, k=k)
+        assert v1.shape == (len(queries), k)
+        assert np.array_equal(_bits(v0), _bits(v1)) and np.array_equal(p0, p1)
+    assert {key[1] for _, key in w.graphs} == {100, 10}
+    assert sum(w.replays["topk"]) > 0
+    sc.close()
+
+
+def test_single_card_predict_launches_under_a_thousand(mesh_world):
+    """The host's kernel and graph launches for a warm predict on one card
+    (torch.profiler's records of the runtime calls; two predicts before
+    it, so that every shape is a graph): under 1,000 through the graphs,
+    fewer than op by op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    m = Matcher(cfg.with_(cascade_impl="device"), truth, GBTModel.load(str(MODEL)), device="cuda",
+                use_index_checkpoint=False)
+    launches = {}
+    for graphs in (True, False):
+        m.scorer.workers.use_graphs = graphs
+        for _ in range(2):
+            m.predict(queries)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            m.predict(queries)
+            torch.cuda.synchronize()
+        launches[graphs] = sum(ev.count for ev in prof.key_averages() if ev.key.startswith(
+            ("cudaLaunchKernel", "cudaGraphLaunch")))
+    assert 0 < launches[True] < 1000 and launches[True] < launches[False], launches
+    m.close()
+
+
+def test_single_card_capture_failure_raises(mesh_world, monkeypatch):
+    """A host sync inside a stage's captured program breaks its capture (at
+    the second predict): the
+    predict raises, naming the shard, nothing runs op by op in its place,
+    and no graph of that stage is kept."""
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.parallel.workers import ShardError
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    m = Matcher(cfg.with_(cascade_impl="device"), truth, GBTModel.load(str(MODEL)), device="cuda",
+                use_index_checkpoint=False)
+    real = m.fuzzy.decide
+
+    def syncing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        out[0].sum().item()
+        return out
+
+    monkeypatch.setattr(m.fuzzy, "decide", syncing)
+    with pytest.raises(ShardError, match="^shard 0 on cuda:0: "):
+        for _ in range(2):
+            m.predict(queries)
+    assert not any(key[0] == "FuzzyEngine" for _, key in m.scorer.workers.graphs)
+    m.close()
+
+
 @pytest.mark.parametrize("score_dtype", ["bfloat16", "float32"])
 def test_two_shards_of_one_card_are_the_single_card_bit_for_bit(mesh_world, score_dtype):
     """Exact retrieval (kernel A gathering, once per shard and block) and
@@ -632,9 +753,9 @@ def test_two_shards_of_one_card_are_the_single_card_bit_for_bit(mesh_world, scor
     assert np.array_equal(_bits(v1), _bits(v3)) and np.array_equal(p1, p3)
     r1, r3 = one.predict(queries), mesh.predict(queries)          # the mesh op by op
     mesh.scorer.cfg, workers.use_graphs = cfg, True
-    r2 = mesh.predict(queries)                                     # the fuzzy and model graphs
+    r2 = [mesh.predict(queries) for _ in range(2)]     # the second captures the fuzzy and model graphs
     assert {"FuzzyEngine", "RerankEngine"} <= set(workers.captures)
-    for r in (r2, r3):
+    for r in r2 + [r3]:
         assert np.array_equal(r1.match_title_id, r.match_title_id) and np.array_equal(r1.stage, r.stage)
         assert np.array_equal(_bits(r1.prediction), _bits(r.prediction))
     mesh.close()
@@ -642,11 +763,11 @@ def test_two_shards_of_one_card_are_the_single_card_bit_for_bit(mesh_world, scor
 
 @pytest.mark.parametrize("mode", ["exact", "folded"])
 def test_mesh_graphs_are_captured_once_per_shard_and_shape_then_replayed(mesh_world, mode):
-    """Each shard captures each of its block shapes once (its first block
-    is the warm-up run's result) and replays it afterwards; the replays
-    give the op-by-op run's candidates (exact: bit for bit; folded, whose
-    coarse weights add by atomics: each a superset of the single card's,
-    score by score)."""
+    """Each shard runs its block shapes op by op in the first call, captures
+    each at its first block of the second (that block the warm-up run's
+    result) and replays it afterwards; the replays give the op-by-op run's
+    candidates (exact: bit for bit; folded, whose coarse weights add by
+    atomics: each a superset of the single card's, score by score)."""
     from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
     from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
     from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer
@@ -656,27 +777,30 @@ def test_mesh_graphs_are_captured_once_per_shard_and_shape_then_replayed(mesh_wo
     index = build_truth_index(truth, cfg)
     sc = ShardedJaccardScorer(index, _one_card_mesh(), cfg, truth=truth)
     n_blocks = len(queries) // cfg.query_block
+    shapes = Counter(shape for shape, _ in sc._blocks(queries, None)[1])
+    assert sum(shapes.values()) == n_blocks
+    k = cfg.top_n_predicting
     w = sc.workers
     a0 = jk.score_window_select.launches
     first = sc.topk(queries)
-    keys = {key for _, key in w.graphs}
+    assert not w.graphs and jk.score_window_select.launches - a0 == 2 * n_blocks
+    second = sc.topk(queries)
+    keys = {("topk", k) + tuple(s) for s in shapes}
     assert set(w.graphs) == {(i, key) for i in range(2) for key in keys}
-    assert all(key[0] == "topk" for key in keys)
     assert w.captures["topk"] == [len(keys)] * 2
     assert w.replays["topk"] == [n_blocks - len(keys)] * 2
-    assert jk.score_window_select.launches - a0 == 2 * n_blocks
-    second = sc.topk(queries)
-    assert w.captures["topk"] == [len(keys)] * 2 and w.replays["topk"] == [2 * n_blocks - len(keys)] * 2
     assert jk.score_window_select.launches - a0 == 4 * n_blocks
+    third = sc.topk(queries)
+    assert w.captures["topk"] == [len(keys)] * 2 and w.replays["topk"] == [2 * n_blocks - len(keys)] * 2
     w.use_graphs = False
     eager = sc.topk(queries)
     assert w.replays["topk"] == [2 * n_blocks - len(keys)] * 2
     if mode == "exact":
-        for got in (first, second):
+        for got in (first, second, third):
             assert np.array_equal(_bits(got[0]), _bits(eager[0])) and np.array_equal(got[1], eager[1])
     else:
         v1, _ = JaccardScorer(index, cfg, "cuda", truth).topk(queries)
-        assert all((got[0] >= v1).all() for got in (first, second, eager))
+        assert all((got[0] >= v1).all() for got in (first, second, third, eager))
     sc.close()
 
 

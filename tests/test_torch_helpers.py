@@ -12,6 +12,7 @@ import torch
 
 from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.ops.jaccard_kernels import untied_slots
+from doppelspeller_tpu_torch.parallel.workers import Workers
 
 MODEL = pathlib.Path(__file__).resolve().parents[1] / "doppelspeller_tpu_torch" / "assets" / "bench_model_r60.npz"
 
@@ -60,3 +61,23 @@ def union_inputs(seed, qb, U, V, ntp, nt, integer=False):
         sums = sums[src]
     sums[nt:] = 0.0
     return packed, union_ids, w, sums, maxint
+
+
+class EagerGraphs(Workers):
+    """Workers whose "graphs" are the step run again on its static inputs:
+    the graphed paths' padding, keys, replays and cuts on the CPU."""
+
+    graphed = True
+
+    def capture(self, i, key, fn, inputs):
+        static = tuple(x.clone() for x in inputs)
+        self.graphs[i, key] = (fn, static)
+        self.captures.setdefault(key[0], [0] * self.mesh.size)[i] += 1
+        return fn(*static)
+
+    def replay(self, i, key, inputs):
+        fn, static = self.graphs[i, key]
+        for dst, x in zip(static, inputs):
+            dst[: x.shape[0]].copy_(x)
+        self.replays.setdefault(key[0], [0] * self.mesh.size)[i] += 1
+        return fn(*static)

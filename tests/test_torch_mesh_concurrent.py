@@ -39,7 +39,7 @@ from doppelspeller_tpu_torch.parallel.sharded import (
 )
 from doppelspeller_tpu_torch.pipeline import Matcher
 from doppelspeller_tpu_torch.utils.io import TitleSet
-from test_torch_helpers import MODEL, compare_predictions, port_config, untied
+from test_torch_helpers import MODEL, EagerGraphs, compare_predictions, port_config, untied
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -190,31 +190,12 @@ def test_row_parallel_keeps_row_order(n_rows, shards_run):
     workers.close()
 
 
-class _EagerGraphs(Workers):
-    """Workers whose "graphs" are the step run again on its static inputs:
-    ``row_parallel``'s padding, keys and cuts on the CPU."""
-
-    graphed = True
-
-    def capture(self, i, key, fn, inputs):
-        static = tuple(x.clone() for x in inputs)
-        self.graphs[i, key] = (fn, static)
-        self.captures.setdefault(key[0], [0] * self.mesh.size)[i] += 1
-        return fn(*static)
-
-    def replay(self, i, key, inputs):
-        fn, static = self.graphs[i, key]
-        for dst, x in zip(static, inputs):
-            dst[: x.shape[0]].copy_(x)
-        self.replays.setdefault(key[0], [0] * self.mesh.size)[i] += 1
-        return fn(*static)
-
-
 def test_row_parallel_graphs_pad_each_part_and_cut_it_back():
     """Each shard's part padded to a power of two rows (at least 64) with
-    its first row, one capture a shard and shape, later parts replayed
-    into the leading rows; outputs cut back to the part's rows."""
-    workers = _EagerGraphs(make_mesh(4, platform="cpu"))
+    its first row: the first call of a shape runs each part alone, the
+    second captures it, later parts are replayed into the leading rows;
+    outputs cut back to the part's rows."""
+    workers = EagerGraphs(make_mesh(4, platform="cpu"))
     seen = []
 
     def run(d, x, y):
@@ -228,8 +209,8 @@ def test_row_parallel_graphs_pad_each_part_and_cut_it_back():
         assert torch.equal(s, x.sum(dim=1) + y) and torch.equal(t, y * 2)
     keys = sorted({key for _, key in workers.graphs})
     assert [key[:2] for key in keys] == [("step", 64)]              # 10, 7 and 200 rows: 64 a shard
-    assert workers.captures["step"] == [1, 1, 1, 1] and workers.replays["step"] == [3, 3, 3, 3]
-    assert set(seen) == {64}
+    assert workers.captures["step"] == [1, 1, 1, 1] and workers.replays["step"] == [2, 2, 2, 2]
+    assert seen[:4] == [3, 3, 3, 1] and set(seen[4:]) == {64}        # 10 rows alone, then padded
     workers.close()
 
 
