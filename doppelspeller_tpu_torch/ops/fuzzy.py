@@ -23,6 +23,7 @@ from torch import nn
 from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.levenshtein import rounded_ratio
+from doppelspeller_tpu_torch.utils import timing
 
 # pairs scored per LCS call (bounds the (pairs, TL, words) temporaries)
 _PAIR_CHUNK = 1 << 16
@@ -158,5 +159,7 @@ class FuzzyEngine(nn.Module):
             pq, pt = put(pair_q[sel], torch.int64), put(pair_t[sel], torch.int64)
             r1 = _ratios(qe[pq], ql[pq], self.t_enc[pt], self.t_len[pt], tl)
             r2 = _ratios(qts[pq], qtsl[pq], self.t_ts[pt], self.t_ts_len[pt], tl)
-            out[sel] = torch.where(r1 > thr, r1, r2).cpu().numpy()
+            ratio = torch.where(r1 > thr, r1, r2)
+            with timing.span("doppel.ratios.wait"):
+                out[sel] = ratio.cpu().numpy()
         return out

@@ -22,6 +22,7 @@ from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.models.gbt import GBTModel, predict_forest_margin
 from doppelspeller_tpu_torch.ops.features import features_kernel, gather_word_chars
+from doppelspeller_tpu_torch.utils import timing
 
 # pairs scored per features + forest call: one full wave-A slab at the
 # default config (model_slab 2048 rows × 32 candidates); bounds the
@@ -149,7 +150,8 @@ class RerankEngine(nn.Module):
                 for s in range(0, len(sel), _PAIR_CHUNK):
                     idx = sel[s : s + _PAIR_CHUNK]
                     pq, pt = put(pair_q[idx], torch.int64), put(pair_t[idx], torch.int64)
-                    out[idx] = self.score_pairs(qe[pq, :TL].contiguous(), ql[pq],
-                                                qw[pq, :TL].contiguous(), qwl[pq], pt, TL,
-                                                WL).cpu().numpy()
+                    pred = self.score_pairs(qe[pq, :TL].contiguous(), ql[pq],
+                                            qw[pq, :TL].contiguous(), qwl[pq], pt, TL, WL)
+                    with timing.span("doppel.score.wait"):
+                        out[idx] = pred.cpu().numpy()
         return out

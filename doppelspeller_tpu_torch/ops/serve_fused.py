@@ -27,7 +27,6 @@ host stages on the fetched candidates, as in the reference.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -38,6 +37,7 @@ from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
 from doppelspeller_tpu_torch.ops.fold import plan_id_blocks
 from doppelspeller_tpu_torch.ops.ngram_index import plan_query_blocks
 from doppelspeller_tpu_torch.pipeline import STAGE_FUZZY, STAGE_MODEL, STAGE_NONE
+from doppelspeller_tpu_torch.utils import timing
 
 LOGGER = logging.getLogger(__name__)
 
@@ -206,28 +206,29 @@ class FusedServe:
             host[off : off + nbytes].view(dt).reshape(shape)[...] = arrays[name]
 
     def _capture(self, key: tuple, segs, nbytes: int, arrays) -> _Graph:
-        """Warm up, then capture the key's graph into the shared pool."""
-        t = time.time()
-        dev = self.device
-        host_in = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=True)
-        self._pack(host_in.numpy(), segs, arrays)
-        static_in = host_in.to(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.run(static_in, key)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        """Warm up, then capture the key's graph into the shared pool: a
+        ``doppel.capture`` span, whose seconds are ``capture_seconds[key]``."""
+        with timing.timed("doppel.capture", graph="FusedServe", rows=self.qb) as sp:
+            dev = self.device
+            host_in = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._pack(host_in.numpy(), segs, arrays)
+            static_in = host_in.to(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.run(static_in, key)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
 
-        def capture():
-            with torch.cuda.graph(graph, pool=self._pool):
-                return self.run(static_in, key)
+            def capture():
+                with torch.cuda.graph(graph, pool=self._pool):
+                    return self.run(static_in, key)
 
-        out, launches = jk.uncounted(capture)
+            out, launches = jk.uncounted(capture)
         FusedServe.captures += 1
-        self.capture_seconds[key] = time.time() - t
+        self.capture_seconds[key] = sp.seconds
         LOGGER.info("[FusedServe] captured %s in %.3f s", key, self.capture_seconds[key])
         return _Graph(graph, static_in, out, host_in,
                       torch.empty(out.shape, dtype=out.dtype, pin_memory=True), launches)
@@ -242,7 +243,9 @@ class FusedServe:
         if eager or self.device.type == "cpu":
             buf = np.zeros(nbytes, np.uint8)
             self._pack(buf, segs, arrays)
-            out = self.run(torch.from_numpy(buf).to(self.device), key).cpu().numpy()
+            packed = self.run(torch.from_numpy(buf).to(self.device), key)
+            with timing.span("doppel.fused.wait"):
+                out = packed.cpu().numpy()
         else:
             g = self._graphs.get(key)
             if g is None:
@@ -250,11 +253,13 @@ class FusedServe:
             else:
                 self._pack(g.host_in.numpy(), segs, arrays)
             g.static_in.copy_(g.host_in, non_blocking=True)
-            g.graph.replay()
+            with timing.span("doppel.replay", graph="FusedServe"):
+                g.graph.replay()
             FusedServe.replays += 1
             jk.count_replay(g.launches)
             g.host_out.copy_(g.out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
+            with timing.span("doppel.fused.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
             out = g.host_out.numpy().copy()
         qb = self.qb
         return rws, out[: 8 * qb].reshape(8, qb), out[8 * qb :].view(np.int32).reshape(qb, self.k), key[4]
@@ -265,36 +270,38 @@ class FusedServe:
         """Decide the rows ``rem`` (at most one query block) into ``res``.
         Rows whose candidates exceed the static model bucket are decided
         again by the host stages on the fetched candidates."""
-        t0 = time.time()
-        rows, stats, cand, tlr = self.dispatch(queries, rem)
-        res.stage_seconds["retrieval"] = time.time() - t0
-        fz_matched, fz_pos, _fz_ratio, md_cnt, md_pos, md_pred, probe_tl, probe_wl = stats
-        thr_p = self.cfg.prediction_probability_threshold
-        fallback = []
-        n_fz = n_md = 0
-        for j, qi in enumerate(rows):
-            if probe_tl[j] > tlr or probe_wl[j] > self.wl_default:
-                fallback.append((j, qi))
-            elif fz_matched[j] > 0:
-                self.m._record(res, qi, int(fz_pos[j]), 1.0, STAGE_FUZZY)
-                n_fz += 1
-            elif single or (md_cnt[j] == 1 and md_pred[j] > thr_p):
-                # a single title takes the first max whatever its value
-                self.m._record(res, qi, int(md_pos[j]), float(md_pred[j]), STAGE_MODEL)
-                n_md += 1
-        res.stage_counts["fuzzy"] = n_fz
-        res.stage_counts["model"] = n_md
-        if fallback:
-            LOGGER.info("[FusedServe] %d rows exceed the (%d, %d) rerank bucket; classic host redo",
-                        len(fallback), tlr, self.wl_default)
-            js = np.asarray([j for j, _ in fallback])
-            qs = np.asarray([qi for _, qi in fallback], dtype=np.int64)
-            cand_sub = cand[js]
-            self.m._stage_fuzzy(queries, qs, cand_sub, res)
-            res.stage_counts["fuzzy"] += n_fz
-            still = res.stage[qs] == STAGE_NONE
-            if still.any():
-                self.m._stage_model(queries, qs[still], cand_sub[still], res, single)
-                res.stage_counts["model"] += n_md
+        with timing.timed("doppel.fused", rows=len(rem)) as sp:
+            rows, stats, cand, tlr = self.dispatch(queries, rem)
+            res.stage_seconds["retrieval"] = sp.seconds
+            fz_matched, fz_pos, _fz_ratio, md_cnt, md_pos, md_pred, probe_tl, probe_wl = stats
+            thr_p = self.cfg.prediction_probability_threshold
+            fallback = []
+            n_fz = n_md = 0
+            for j, qi in enumerate(rows):
+                if probe_tl[j] > tlr or probe_wl[j] > self.wl_default:
+                    fallback.append((j, qi))
+                elif fz_matched[j] > 0:
+                    self.m._record(res, qi, int(fz_pos[j]), 1.0, STAGE_FUZZY)
+                    n_fz += 1
+                elif single or (md_cnt[j] == 1 and md_pred[j] > thr_p):
+                    # a single title takes the first max whatever its value
+                    self.m._record(res, qi, int(md_pos[j]), float(md_pred[j]), STAGE_MODEL)
+                    n_md += 1
+            res.stage_counts["fuzzy"] = n_fz
+            res.stage_counts["model"] = n_md
+            sp.set(fallback_rows=len(fallback))
+            if fallback:
+                LOGGER.info("[FusedServe] %d rows exceed the (%d, %d) rerank bucket; classic host redo",
+                            len(fallback), tlr, self.wl_default)
+                with timing.span("doppel.fused.redo", rows=len(fallback)):
+                    js = np.asarray([j for j, _ in fallback])
+                    qs = np.asarray([qi for _, qi in fallback], dtype=np.int64)
+                    cand_sub = cand[js]
+                    self.m._stage_fuzzy(queries, qs, cand_sub, res)
+                    res.stage_counts["fuzzy"] += n_fz
+                    still = res.stage[qs] == STAGE_NONE
+                    if still.any():
+                        self.m._stage_model(queries, qs[still], cand_sub[still], res, single)
+                        res.stage_counts["model"] += n_md
         res.stage_seconds["fuzzy"] = 0.0
         res.stage_seconds["model"] = 0.0

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import partial
@@ -46,6 +45,7 @@ from torch import nn
 
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+from doppelspeller_tpu_torch.utils import timing
 
 
 @dataclass(frozen=True)
@@ -182,7 +182,8 @@ class Workers:
                 graph = torch.cuda.CUDAGraph()
 
                 def capture():
-                    torch.cuda.synchronize(d)
+                    with timing.span("doppel.capture.wait"):
+                        torch.cuda.synchronize(d)
                     graph.capture_begin(self._pools[i], capture_error_mode="thread_local")
                     try:
                         return fn(*static)
@@ -194,9 +195,9 @@ class Workers:
                 self.captures.setdefault(key[0], [0] * self.mesh.size)[i] += 1
             return {i: out}
 
-        t = time.time()
-        out = self.collect(self.submit(job, [i]))[i]
-        self.capture_seconds[key[0]] = self.capture_seconds.get(key[0], 0.0) + time.time() - t
+        with timing.timed("doppel.capture", graph=key[0], rows=int(inputs[0].shape[0])) as sp:
+            out = self.collect(self.submit(job, [i]))[i]
+        self.capture_seconds[key[0]] = self.capture_seconds.get(key[0], 0.0) + sp.seconds
         return out
 
     def replay(self, i: int, key: tuple, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
@@ -207,7 +208,8 @@ class Workers:
         g = self.graphs[i, key]
         for dst, x in zip(g.static_in, inputs):
             dst[: x.shape[0]].copy_(x)
-        g.graph.replay()
+        with timing.span("doppel.replay", graph=key[0]):
+            g.graph.replay()
         jk.count_replay(g.launches)
         self.replays.setdefault(key[0], [0] * self.mesh.size)[i] += 1
         return g.out

@@ -50,13 +50,18 @@ under twice its rows (a bucket of 10,357 rows padded whole would take
 fetched once (the model stage's once a wave), so no host sync falls
 inside a stage once its shapes are graphs.  Results do not depend on the
 padding, the groups or the graphs: every row is decided alone.
+
+Each predict is a ``doppel.predict`` span and each stage a span inside it
+(``utils/timing.py``), recorded while a profiler runs; the stage spans'
+seconds fill ``PredictionResult.stage_seconds`` whether or not they are
+recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -75,6 +80,7 @@ from doppelspeller_tpu_torch.ops.rerank import RerankEngine
 from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer, build_sharded_index
 from doppelspeller_tpu_torch.parallel.workers import Mesh, replicate, row_parallel
 from doppelspeller_tpu_torch.utils import text as T
+from doppelspeller_tpu_torch.utils import timing
 from doppelspeller_tpu_torch.utils.io import TitleSet, as_int64, load_ground_truth, read_csv
 
 LOGGER = logging.getLogger(__name__)
@@ -148,6 +154,16 @@ def _groupby_max_unique(q_idx: np.ndarray, values: np.ndarray, n_queries: int):
     return best_row, count_max == 1
 
 
+@contextlib.contextmanager
+def _stage_span(res: PredictionResult, stage: str, **counts):
+    """Cascade stage ``stage``'s span (``doppel.<stage>``, ``utils/timing.py``);
+    its seconds fill ``res.stage_seconds[stage]`` when it ends, by a
+    ``return`` inside it too."""
+    with timing.timed(f"doppel.{stage}", **counts) as sp:
+        yield sp
+    res.stage_seconds[stage] = sp.seconds
+
+
 class Matcher:
     """End-to-end matcher over a truth database, on one device or a mesh.
 
@@ -158,7 +174,9 @@ class Matcher:
     rebuilt with a warning.  An index is built on ``device`` or on the
     host as ``config.index_build_impl`` resolves (``build_truth_index``).
     ``model`` defaults to ``config.model_path``, read at the first use of
-    stage 3.  ``init_seconds`` splits the construction's seconds.
+    stage 3.  ``init_seconds`` splits the construction's seconds by piece
+    (load, index, retrieval, words, token_sort, fuzzy_engine, rest), each
+    a ``doppel.init.<piece>`` span (``utils/timing.py``).
 
     ``mesh`` (``parallel.sharded.Mesh``; ``device`` is then its first
     device): the index (the checkpoint's or the given one) is sharded over
@@ -178,50 +196,61 @@ class Matcher:
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         devices = mesh.distinct if mesh is not None else (self.device,)
 
-        def clock() -> float:
-            for d in devices:
-                synchronize(d)
-            return time.time()
+        # construction's pieces, each a span that ends after a synchronize:
+        # the truth index (the truth and checkpoint reads under "load"), the
+        # retrieval engine's device matrices (on a mesh built here, with
+        # the index: "retrieval" is then 0), the truth's word split, its
+        # token-sorted encodings, the fuzzy engine, and the rest.  The
+        # pieces follow one another, so their seconds sum to the
+        # construction's
+        self.init_seconds: Dict[str, float] = {}
+        for d in devices:
+            synchronize(d)
 
-        t0 = clock()
-        self.truth = truth = truth or load_ground_truth(config)
-        if index is None and use_index_checkpoint and os.path.exists(config.index_path):
-            index = self._checkpoint(config.index_path, truth, on_mesh=mesh is not None)
-        t1 = clock()
-        if mesh is not None and index is None:
-            # built on the mesh, each shard on its own device
-            self.scorer = build_sharded_index(truth, mesh, config)
-            self.index = self.scorer.index
-            t2 = clock()
-        else:
-            self.index = index or build_truth_index(truth, config, self.device)
-            t2 = clock()
+        @contextlib.contextmanager
+        def piece(key: str):
+            with timing.timed(f"doppel.init.{key}") as sp:
+                yield
+                for d in devices:
+                    synchronize(d)
+            self.init_seconds[key] = sp.seconds
+
+        with piece("load"):
+            self.truth = truth = truth or load_ground_truth(config)
+            if index is None and use_index_checkpoint and os.path.exists(config.index_path):
+                index = self._checkpoint(config.index_path, truth, on_mesh=mesh is not None)
+        on_mesh_built = mesh is not None and index is None
+        with piece("index"):
+            if on_mesh_built:
+                # built on the mesh, each shard on its own device
+                self.scorer = build_sharded_index(truth, mesh, config)
+                self.index = self.scorer.index
+            else:
+                self.index = index or build_truth_index(truth, config, self.device)
+        with piece("retrieval"):
             if mesh is None:
                 self.scorer = JaccardScorer(self.index, config, self.device, truth)
-            else:
+            elif not on_mesh_built:
                 self.scorer = ShardedJaccardScorer(self.index, mesh, config, truth=truth)
-        t3 = clock()
-        # exact-match lookup: duplicate transformed titles → last id wins
-        self.reverse: Dict[str, int] = {
-            t: int(i) for t, i in zip(truth.transformed, truth.ids)
-        }
-        self.truth_words = split_words_host(truth.encoded, truth.lengths)
-        wlen_max = self.truth_words[1].max(axis=1).astype(np.int32)
-        ts = [" ".join(sorted(t.split())) for t in truth.transformed]
-        ts_enc = T.encode_titles(ts, config.max_characters)
-        ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
-        self.ts_truth = (ts_enc, ts_len)
-        self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
-                                 config, self.device)
-        self._fuzzy_copies = replicate(self.fuzzy, self.scorer.workers.mesh)
-        self._word_counts: Optional[np.ndarray] = None
-        self.set_model(model)
-        # construction seconds by the host clock after a synchronize: the
-        # truth index (the truth and checkpoint reads under "load"), the
-        # retrieval engine's device matrices (on a mesh built here, with
-        # the index: "retrieval" is then 0), and the rest
-        self.init_seconds = {"load": t1 - t0, "index": t2 - t1, "retrieval": t3 - t2,
-                             "rest": clock() - t3}
+        with piece("words"):
+            self.truth_words = split_words_host(truth.encoded, truth.lengths)
+            wlen_max = self.truth_words[1].max(axis=1).astype(np.int32)
+        with piece("token_sort"):
+            ts = [" ".join(sorted(t.split())) for t in truth.transformed]
+            ts_enc = T.encode_titles(ts, config.max_characters)
+            ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
+            self.ts_truth = (ts_enc, ts_len)
+        with piece("fuzzy_engine"):
+            self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
+                                     config, self.device)
+            self._fuzzy_copies = replicate(self.fuzzy, self.scorer.workers.mesh)
+        with piece("rest"):
+            # exact-match lookup: duplicate transformed titles → last id wins
+            self.reverse: Dict[str, int] = {
+                t: int(i) for t, i in zip(truth.transformed, truth.ids)
+            }
+            self._word_counts: Optional[np.ndarray] = None
+            self.set_model(model)
 
     @staticmethod
     def _checkpoint(path: str, truth: TitleSet, on_mesh: bool = False) -> Optional[TruthIndex]:
@@ -399,175 +428,189 @@ class Matcher:
         ``waves`` stage 3 scores every candidate in one pass, and a padding
         candidate raises ``IndexError`` as the reference's host stages do;
         ``single`` (one row) records the first max of all its probabilities
-        whatever its value and count."""
+        whatever its value and count.  Each stage is a span (``doppel.plan``,
+        ``doppel.retrieval``, ``doppel.fuzzy``, ``doppel.model``) whose
+        seconds fill ``res.stage_seconds``; each fetch is a ``.wait`` span
+        inside its stage."""
         cfg = self.cfg
         dev = self.device
         k = cfg.top_n_predicting
         buckets = [b for b in cfg.length_buckets if b < cfg.max_characters]
         buckets.append(cfg.max_characters)
         buckets_arr = np.asarray(buckets)
-        # a fuzzy-considered candidate satisfies the length-delta prefilter,
-        # so |t| <= ceil(|q|·(200−thr)/thr): the fuzzy tile is derived from
-        # the threshold and no considered pair can overflow it, unless
-        # fuzzy_tile_cap caps the tile at the widest bucket within it; a row
-        # with a considered pair longer than that tile is flagged and decided
-        # again by the host stage on its candidates
-        thr_i = int(cfg.levenshtein_ratio_threshold)
-        q_len_all = queries.lengths.astype(np.int64)
-        need_all = np.minimum((q_len_all * (200 - thr_i) + thr_i - 1) // thr_i,
-                              cfg.max_characters)
-        titles = np.array(queries.transformed, dtype=object)
-        fzb = np.searchsorted(buckets_arr, need_all[rem])
-        order = np.lexsort((titles[rem], fzb))
-        rem = rem[order]
-        fzb = fzb[order]
+        with timing.span("doppel.plan", rows=len(rem)):
+            # a fuzzy-considered candidate satisfies the length-delta
+            # prefilter, so |t| <= ceil(|q|·(200−thr)/thr): the fuzzy tile is
+            # derived from the threshold and no considered pair can overflow
+            # it, unless fuzzy_tile_cap caps the tile at the widest bucket
+            # within it; a row with a considered pair longer than that tile
+            # is flagged and decided again by the host stage on its candidates
+            thr_i = int(cfg.levenshtein_ratio_threshold)
+            q_len_all = queries.lengths.astype(np.int64)
+            need_all = np.minimum((q_len_all * (200 - thr_i) + thr_i - 1) // thr_i,
+                                  cfg.max_characters)
+            titles = np.array(queries.transformed, dtype=object)
+            fzb = np.searchsorted(buckets_arr, need_all[rem])
+            order = np.lexsort((titles[rem], fzb))
+            rem = rem[order]
+            fzb = fzb[order]
 
-        t0 = time.time()
-        _, cand = self.scorer.topk_device(queries, k=k, rows=rem)          # (R, k) i32
-        if not waves:
-            self._raise_on_padding(cand, order)
-        synchronize(dev)
-        t_retr = time.time()
-        res.stage_seconds["retrieval"] = t_retr - t0
+        with _stage_span(res, "retrieval", rows=len(rem)):
+            _, cand = self.scorer.topk_device(queries, k=k, rows=rem)          # (R, k) i32
+            with timing.span("doppel.retrieval.wait"):
+                if not waves:
+                    self._raise_on_padding(cand, order)
+                synchronize(dev)
 
         # ---- stage 2: fuzzy, per tile bucket (a run of ``rem``, which is
         # sorted by bucket) in slabs of ``model_slab`` rows, as the model
         # stage; the rows uploaded once, the results fetched once
-        slab = int(cfg.model_slab)
-        cap = int(cfg.fuzzy_tile_cap)
-        cap_tl = max([b for b in buckets if b <= cap] or [buckets[0]])
-        L = cfg.max_characters
-        ts_enc_all, ts_len_all = queries.encoded_token_sorted
-        q_enc, q_len, q_ts, q_ts_len = (upload(x, dev) for x in (
-            queries.encoded[rem], queries.lengths[rem], ts_enc_all[rem, :L], ts_len_all[rem]))
-        outs = []
-        for bi in np.unique(fzb):
-            lo, hi = np.searchsorted(fzb, bi), np.searchsorted(fzb, bi, side="right")
-            TL = int(buckets_arr[bi])
-            if cap:
-                TL = min(TL, cap_tl)
-            for a in range(lo, hi, slab):
-                b = min(a + slab, hi)
-                outs.append(self._decide(self.fuzzy, self._fuzzy_copies, q_enc[a:b, :TL], q_len[a:b],
-                                         q_ts[a:b, :TL], q_ts_len[a:b], cand[a:b], tl=TL))
-        m, best_pos, _ratio, over_rows, probe_tl, probe_wl = fetch(outs)
-        matched = m & ~over_rows
-        hits = 0
-        for j in np.flatnonzero(matched):
-            self._record(res, rem[j], int(best_pos[j]), 1.0, STAGE_FUZZY)
-            hits += 1
-        res.stage_counts["fuzzy"] = hits
-        if over_rows.any():
-            js = np.flatnonzero(over_rows)
-            LOGGER.warning("fuzzy device overflow on %d rows; host redo", len(js))
-            self._stage_fuzzy(queries, rem[js], cand[torch.from_numpy(js).to(dev)].cpu().numpy(), res)
-            res.stage_counts["fuzzy"] += hits
-        t1 = time.time()
-        res.stage_seconds["fuzzy"] = t1 - t_retr
+        with _stage_span(res, "fuzzy", rows=len(rem)) as sp:
+            slab = int(cfg.model_slab)
+            cap = int(cfg.fuzzy_tile_cap)
+            cap_tl = max([b for b in buckets if b <= cap] or [buckets[0]])
+            L = cfg.max_characters
+            ts_enc_all, ts_len_all = queries.encoded_token_sorted
+            q_enc, q_len, q_ts, q_ts_len = (upload(x, dev) for x in (
+                queries.encoded[rem], queries.lengths[rem], ts_enc_all[rem, :L], ts_len_all[rem]))
+            outs = []
+            for bi in np.unique(fzb):
+                lo, hi = np.searchsorted(fzb, bi), np.searchsorted(fzb, bi, side="right")
+                TL = int(buckets_arr[bi])
+                if cap:
+                    TL = min(TL, cap_tl)
+                for a in range(lo, hi, slab):
+                    b = min(a + slab, hi)
+                    outs.append(self._decide(self.fuzzy, self._fuzzy_copies, q_enc[a:b, :TL],
+                                             q_len[a:b], q_ts[a:b, :TL], q_ts_len[a:b], cand[a:b],
+                                             tl=TL))
+            with timing.span("doppel.fuzzy.wait"):
+                m, best_pos, _ratio, over_rows, probe_tl, probe_wl = fetch(outs)
+            matched = m & ~over_rows
+            hits = 0
+            for j in np.flatnonzero(matched):
+                self._record(res, rem[j], int(best_pos[j]), 1.0, STAGE_FUZZY)
+                hits += 1
+            res.stage_counts["fuzzy"] = hits
+            sp.set(slabs=len(outs), hits=hits, overflow_rows=int(over_rows.sum()))
+            if over_rows.any():
+                js = np.flatnonzero(over_rows)
+                LOGGER.warning("fuzzy device overflow on %d rows; host redo", len(js))
+                with timing.span("doppel.fuzzy.redo", rows=len(js)):
+                    with timing.span("doppel.fuzzy.redo.wait"):
+                        cand_js = cand[torch.from_numpy(js).to(dev)].cpu().numpy()
+                    self._stage_fuzzy(queries, rem[js], cand_js, res)
+                res.stage_counts["fuzzy"] += hits
 
-        # ---- stage 3: model on still-unmatched rows ----
-        todo = np.flatnonzero(res.stage[rem] == STAGE_NONE)     # indices into rem
-        if len(todo) == 0:
-            res.stage_counts["model"] = 0
-            res.stage_seconds["model"] = time.time() - t1
-            return
-        gq = rem[todo]
-        tl_need = np.maximum(q_len_all[gq], probe_tl[todo])
-        wl_need = np.maximum(probe_wl[todo], 1)
-        w_buckets = [b for b in (16, 32, 64) if b < cfg.max_characters]
-        w_buckets.append(cfg.max_characters)
-        w_arr = np.asarray(w_buckets)
-        tbi = np.searchsorted(buckets_arr, np.minimum(tl_need, cfg.max_characters))
-        wbi = np.searchsorted(w_arr, np.minimum(wl_need, cfg.max_characters))
-        tbi = np.maximum(tbi, np.searchsorted(buckets_arr, w_arr)[wbi])
+        # ---- stage 3: model on still-unmatched rows, in wave A and, with
+        # adaptive depth, wave B, each a ``doppel.model.wave`` span whose
+        # fetch is a ``doppel.model.wave.wait`` ----
+        with _stage_span(res, "model") as sp:
+            todo = np.flatnonzero(res.stage[rem] == STAGE_NONE)     # indices into rem
+            sp.set(rows=len(todo), hits=0)
+            if len(todo) == 0:
+                res.stage_counts["model"] = 0
+                return
+            gq = rem[todo]
+            tl_need = np.maximum(q_len_all[gq], probe_tl[todo])
+            wl_need = np.maximum(probe_wl[todo], 1)
+            w_buckets = [b for b in (16, 32, 64) if b < cfg.max_characters]
+            w_buckets.append(cfg.max_characters)
+            w_arr = np.asarray(w_buckets)
+            tbi = np.searchsorted(buckets_arr, np.minimum(tl_need, cfg.max_characters))
+            wbi = np.searchsorted(w_arr, np.minimum(wl_need, cfg.max_characters))
+            tbi = np.maximum(tbi, np.searchsorted(buckets_arr, w_arr)[wbi])
 
-        wo_enc, wo_len = queries.encoded_wo
-        todo_d = upload(todo, dev)
-        q_enc_d, q_len_d, cand_todo = q_enc[todo_d], q_len[todo_d], cand[todo_d]
-        q_wo_d, q_wo_len_d = upload(wo_enc[gq], dev), upload(wo_len[gq], dev)
-        n = len(todo)
+            wo_enc, wo_len = queries.encoded_wo
+            todo_d = upload(todo, dev)
+            q_enc_d, q_len_d, cand_todo = q_enc[todo_d], q_len[todo_d], cand[todo_d]
+            q_wo_d, q_wo_len_d = upload(wo_enc[gq], dev), upload(wo_len[gq], dev)
+            n = len(todo)
 
-        def run_wave(rows_t: np.ndarray, narrow: int, col_lo: int = 0):
-            """(cnt, pos, mx) host arrays over todo rows ``rows_t`` (others
-            left at cnt 0, mx −inf), and (slabs, seconds to dispatch them,
-            seconds to fetch their results): the slabs' rows uploaded once,
-            their results fetched once."""
-            t_w = time.time()
-            slabs = []
-            for ti, TL in enumerate(buckets):
-                for wi, WL in enumerate(w_buckets):
-                    if WL > TL:
-                        continue
-                    sub = rows_t[(tbi[rows_t] == ti) & (wbi[rows_t] == wi)]
-                    slabs += [(sub[s : s + slab], TL, WL) for s in range(0, len(sub), slab)]
-            sel = np.concatenate([sl for sl, _, _ in slabs])
-            sel_d = upload(sel, dev)
-            rerank = self.rerank                  # built (and copied to the mesh) at first use
-            outs, o = [], 0
-            for sl, TL, WL in slabs:
-                sl_d = sel_d[o : o + len(sl)]
-                o += len(sl)
-                outs.append(self._decide(
-                    rerank, self._rerank_copies,
-                    q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
-                    cand_todo[sl_d], tl=TL, wl=WL, narrow=narrow, col_lo=col_lo,
-                ))
-            t_d = time.time()
-            cnt = np.zeros(n, np.int64)
-            pos = np.zeros(n, np.int64)
-            mx = np.full(n, -np.inf, np.float32)
-            cnt[sel], pos[sel], mx[sel] = fetch(outs)
-            return cnt, pos, mx, (len(slabs), t_d - t_w, time.time() - t_d)
+            def run_wave(wave: str, rows_t: np.ndarray, narrow: int, col_lo: int = 0):
+                """(cnt, pos, mx) host arrays over todo rows ``rows_t`` (others
+                left at cnt 0, mx −inf): the slabs' rows uploaded once, their
+                results fetched once."""
+                with timing.timed("doppel.model.wave", wave=wave, rows=len(rows_t)) as sw:
+                    slabs = []
+                    for ti, TL in enumerate(buckets):
+                        for wi, WL in enumerate(w_buckets):
+                            if WL > TL:
+                                continue
+                            sub = rows_t[(tbi[rows_t] == ti) & (wbi[rows_t] == wi)]
+                            slabs += [(sub[s : s + slab], TL, WL)
+                                      for s in range(0, len(sub), slab)]
+                    sw.set(slabs=len(slabs))
+                    sel = np.concatenate([sl for sl, _, _ in slabs])
+                    sel_d = upload(sel, dev)
+                    rerank = self.rerank        # built (and copied to the mesh) at first use
+                    outs, o = [], 0
+                    for sl, TL, WL in slabs:
+                        sl_d = sel_d[o : o + len(sl)]
+                        o += len(sl)
+                        outs.append(self._decide(
+                            rerank, self._rerank_copies,
+                            q_enc_d[sl_d], q_len_d[sl_d], q_wo_d[sl_d], q_wo_len_d[sl_d],
+                            cand_todo[sl_d], tl=TL, wl=WL, narrow=narrow, col_lo=col_lo,
+                        ))
+                    cnt = np.zeros(n, np.int64)
+                    pos = np.zeros(n, np.int64)
+                    mx = np.full(n, -np.inf, np.float32)
+                    with timing.timed("doppel.model.wave.wait") as sf:
+                        cnt[sel], pos[sel], mx[sel] = fetch(outs)
+                if wave == "b":
+                    LOGGER.info("model wave B: %d slabs dispatched %.2fs, fetched %.2fs",
+                                len(slabs), sw.seconds - sf.seconds, sf.seconds)
+                return cnt, pos, mx
 
-        def apply(rows_t, cnt, pos, mx) -> int:
-            thr = cfg.prediction_probability_threshold
-            hit = 0
-            for j in rows_t[(cnt[rows_t] == 1) & (mx[rows_t] > thr)]:
-                self._record(res, rem[todo[j]], int(pos[j]), float(mx[j]), STAGE_MODEL)
-                hit += 1
-            return hit
+            def apply(rows_t, cnt, pos, mx) -> int:
+                thr = cfg.prediction_probability_threshold
+                hit = 0
+                for j in rows_t[(cnt[rows_t] == 1) & (mx[rows_t] > thr)]:
+                    self._record(res, rem[todo[j]], int(pos[j]), float(mx[j]), STAGE_MODEL)
+                    hit += 1
+                return hit
 
-        k1 = int(cfg.model_depth_initial)
-        adaptive = waves and 0 < k1 < k
-        all_rows = np.arange(n, dtype=np.int64)
-        cnt_a, pos_a, mx_a, _ = run_wave(all_rows, k1 if adaptive else 0)
-        if single:
-            self._record(res, rem[todo[0]], int(pos_a[0]), float(mx_a[0]), STAGE_MODEL)
-            hits = 1
-        elif not adaptive:
-            hits = apply(all_rows, cnt_a, pos_a, mx_a)
-        else:
-            widen_thr = float(cfg.model_widen_threshold)
-            trust_thr = float(cfg.model_trust_threshold)
-            band = (mx_a >= widen_thr) & (mx_a < trust_thr)
-            # a trusted head whose max is tied must widen: the tail may hold
-            # a strictly higher unique max
-            band |= (mx_a >= trust_thr) & (cnt_a > 1)
-            widen = all_rows[band]
-            hits = apply(all_rows[~band], cnt_a, pos_a, mx_a)
-            if len(widen):
-                LOGGER.info("model wave B: %d/%d rows widened by %d tail candidates",
-                            len(widen), n, k - k1)
-                cnt_b, pos_b, mx_b, slabs = run_wave(widen, 0, col_lo=k1)
-                LOGGER.info("model wave B: %d slabs dispatched %.2fs, fetched %.2fs", *slabs)
-                a_wins = mx_a[widen] >= mx_b[widen]         # ties keep A (first col)
-                tie = mx_a[widen] == mx_b[widen]
-                LOGGER.info("model wave B: tail won %d/%d widened rows, %d head=tail ties",
-                            int((~a_wins).sum()), len(widen), int(tie.sum()))
-                dump = os.environ.get("DOPPEL_DUMP_WAVES")
-                if dump:
-                    # per widened row, both waves' (max, position, count at
-                    # max), to calibrate model_trust_threshold offline
-                    np.savez(dump, widen=widen, mx_a=mx_a[widen], mx_b=mx_b[widen],
-                             pos_a=pos_a[widen], pos_b=pos_b[widen], cnt_a=cnt_a[widen],
-                             cnt_b=cnt_b[widen])
-                mx_a[widen] = np.where(a_wins, mx_a[widen], mx_b[widen])
-                pos_a[widen] = np.where(a_wins, pos_a[widen], pos_b[widen])
-                cnt_a[widen] = np.where(tie, cnt_a[widen] + cnt_b[widen],
-                                        np.where(a_wins, cnt_a[widen], cnt_b[widen]))
-                hits += apply(widen, cnt_a, pos_a, mx_a)
-        res.stage_counts["model"] = hits
-        res.stage_seconds["model"] = time.time() - t1
+            k1 = int(cfg.model_depth_initial)
+            adaptive = waves and 0 < k1 < k
+            all_rows = np.arange(n, dtype=np.int64)
+            cnt_a, pos_a, mx_a = run_wave("a", all_rows, k1 if adaptive else 0)
+            if single:
+                self._record(res, rem[todo[0]], int(pos_a[0]), float(mx_a[0]), STAGE_MODEL)
+                hits = 1
+            elif not adaptive:
+                hits = apply(all_rows, cnt_a, pos_a, mx_a)
+            else:
+                widen_thr = float(cfg.model_widen_threshold)
+                trust_thr = float(cfg.model_trust_threshold)
+                band = (mx_a >= widen_thr) & (mx_a < trust_thr)
+                # a trusted head whose max is tied must widen: the tail may hold
+                # a strictly higher unique max
+                band |= (mx_a >= trust_thr) & (cnt_a > 1)
+                widen = all_rows[band]
+                hits = apply(all_rows[~band], cnt_a, pos_a, mx_a)
+                if len(widen):
+                    LOGGER.info("model wave B: %d/%d rows widened by %d tail candidates",
+                                len(widen), n, k - k1)
+                    cnt_b, pos_b, mx_b = run_wave("b", widen, 0, col_lo=k1)
+                    a_wins = mx_a[widen] >= mx_b[widen]         # ties keep A (first col)
+                    tie = mx_a[widen] == mx_b[widen]
+                    LOGGER.info("model wave B: tail won %d/%d widened rows, %d head=tail ties",
+                                int((~a_wins).sum()), len(widen), int(tie.sum()))
+                    dump = os.environ.get("DOPPEL_DUMP_WAVES")
+                    if dump:
+                        # per widened row, both waves' (max, position, count at
+                        # max), to calibrate model_trust_threshold offline
+                        np.savez(dump, widen=widen, mx_a=mx_a[widen], mx_b=mx_b[widen],
+                                 pos_a=pos_a[widen], pos_b=pos_b[widen], cnt_a=cnt_a[widen],
+                                 cnt_b=cnt_b[widen])
+                    mx_a[widen] = np.where(a_wins, mx_a[widen], mx_b[widen])
+                    pos_a[widen] = np.where(a_wins, pos_a[widen], pos_b[widen])
+                    cnt_a[widen] = np.where(tie, cnt_a[widen] + cnt_b[widen],
+                                            np.where(a_wins, cnt_a[widen], cnt_b[widen]))
+                    hits += apply(widen, cnt_a, pos_a, mx_a)
+            res.stage_counts["model"] = hits
+            sp.set(hits=hits)
 
     def _raise_on_padding(self, cand: torch.Tensor, order: np.ndarray) -> None:
         """The reference's host stages index the truth arrays with numpy,
@@ -594,28 +637,33 @@ class Matcher:
                 f"Matcher's config.max_characters is {cfg.max_characters}"
             )
         n = len(queries)
-        res = PredictionResult(
-            test_index=queries.ids.copy(),
-            match_title_id=np.full(n, cfg.train_not_found_value, dtype=np.int64),
-            prediction=np.zeros(n, dtype=np.float32),
-            stage=np.zeros(n, dtype=np.uint8),
-            transformed=list(queries.transformed),
-            match_transformed=[None] * n,
-        )
-        t0 = time.time()
-        self._stage_exact(queries, res)
-        res.stage_seconds = {"exact": time.time() - t0, "retrieval": 0.0,
-                             "fuzzy": 0.0, "model": 0.0}
-        res.stage_counts.update(fuzzy=0, model=0)
-        rem = np.flatnonzero(res.stage == STAGE_NONE)
-        impl = cfg.cascade_impl
-        waves = not single and (
-            impl == "device" or (impl == "auto" and len(rem) >= DEVICE_CASCADE_MIN_ROWS))
-        if len(rem) and not waves and self._use_fused(rem, impl):
-            self._fused_engine().match(queries, rem, res, single)
-        elif len(rem):
-            with self.scorer.workers.run():                # one run of the graphs' rule
-                self._cascade_device(queries, rem, res, waves=waves, single=single)
+        with timing.span("doppel.predict", queries=n) as root:
+            res = PredictionResult(
+                test_index=queries.ids.copy(),
+                match_title_id=np.full(n, cfg.train_not_found_value, dtype=np.int64),
+                prediction=np.zeros(n, dtype=np.float32),
+                stage=np.zeros(n, dtype=np.uint8),
+                transformed=list(queries.transformed),
+                match_transformed=[None] * n,
+            )
+            with _stage_span(res, "exact") as sp:
+                self._stage_exact(queries, res)
+                sp.set(hits=res.stage_counts["exact"])
+            res.stage_seconds.update(retrieval=0.0, fuzzy=0.0, model=0.0)
+            res.stage_counts.update(fuzzy=0, model=0)
+            rem = np.flatnonzero(res.stage == STAGE_NONE)
+            impl = cfg.cascade_impl
+            waves = not single and (
+                impl == "device" or (impl == "auto" and len(rem) >= DEVICE_CASCADE_MIN_ROWS))
+            if not len(rem):
+                root.set(path="exact")
+            elif not waves and self._use_fused(rem, impl):
+                root.set(path="fused")
+                self._fused_engine().match(queries, rem, res, single)
+            else:
+                root.set(path="waves" if waves else "staged")
+                with self.scorer.workers.run():                # one run of the graphs' rule
+                    self._cascade_device(queries, rem, res, waves=waves, single=single)
         LOGGER.info("Matched %d/%d titles (exact %d, fuzzy %d, model %d)",
                     int((res.stage != STAGE_NONE).sum()), n, res.stage_counts["exact"],
                     res.stage_counts["fuzzy"], res.stage_counts["model"])

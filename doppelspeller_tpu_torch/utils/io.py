@@ -25,6 +25,7 @@ import numpy as np
 
 from doppelspeller_tpu_torch.config import Config, get_config
 from doppelspeller_tpu_torch.utils import text as T
+from doppelspeller_tpu_torch.utils import timing
 
 LOGGER = logging.getLogger(__name__)
 
@@ -67,22 +68,24 @@ class TitleSet:
     def encoded_wo(self) -> tuple:
         """Spaceless encodings (enc uint8[B, L], len int32[B]), built once."""
         if self._wo is None:
-            L = self.encoded.shape[1]
-            wo = [t[:L].replace(" ", "") for t in self.transformed]
-            enc = T.encode_titles(wo, L)
-            ln = np.array([min(len(t), L) for t in wo], dtype=np.int32)
-            self._wo = (enc, ln)
+            with timing.span("doppel.encode.wo", titles=len(self)):
+                L = self.encoded.shape[1]
+                wo = [t[:L].replace(" ", "") for t in self.transformed]
+                enc = T.encode_titles(wo, L)
+                ln = np.array([min(len(t), L) for t in wo], dtype=np.int32)
+                self._wo = (enc, ln)
         return self._wo
 
     @property
     def encoded_token_sorted(self) -> tuple:
         """Token-sorted encodings (enc uint8[B, L], len int32[B]), built once."""
         if self._ts is None:
-            L = self.encoded.shape[1]
-            ts = [" ".join(sorted(t.split())) for t in self.transformed]
-            enc = T.encode_titles(ts, L)
-            ln = np.array([min(len(t), L) for t in ts], dtype=np.int32)
-            self._ts = (enc, ln)
+            with timing.span("doppel.encode.token_sort", titles=len(self)):
+                L = self.encoded.shape[1]
+                ts = [" ".join(sorted(t.split())) for t in self.transformed]
+                enc = T.encode_titles(ts, L)
+                ln = np.array([min(len(t), L) for t in ts], dtype=np.int32)
+                self._ts = (enc, ln)
         return self._ts
 
     def trigram_ids(self) -> np.ndarray:
@@ -101,9 +104,10 @@ class TitleSet:
     ) -> "TitleSet":
         max_chars = config.max_characters if config else T.MAX_CHARACTERS
         n_grams = config.n_grams if config else T.N_GRAMS
-        transformed = T.transform_titles(titles, max_chars, n_grams)
-        encoded = T.encode_titles(transformed, max_chars)
-        lengths = np.array([min(len(t), max_chars) for t in transformed], dtype=np.int32)
+        with timing.span("doppel.encode", titles=len(titles)):
+            transformed = T.transform_titles(titles, max_chars, n_grams)
+            encoded = T.encode_titles(transformed, max_chars)
+            lengths = np.array([min(len(t), max_chars) for t in transformed], dtype=np.int32)
         if ids is None:
             ids = np.arange(len(titles), dtype=np.int64)
         return cls(

@@ -15,7 +15,8 @@ against the same program run op by op, bit for bit, and the truth index
 built on the card (``ops/index_device.py``) against the host build.  The
 single card's graphs (retrieval, fuzzy and model stages) against its run
 op by op, bit for bit (two k on one scorer too), its host launches a
-predict, and a failed capture.  The mesh
+predict, the program's spans around its graph launches and fetches, and a
+failed capture.  The mesh
 (``parallel/sharded.py``) on two shards of the card: a stream each,
 graphs captured once per shard and shape, the single card's bits.
 """
@@ -690,6 +691,55 @@ def test_single_card_predict_launches_under_a_thousand(mesh_world):
         launches[graphs] = sum(ev.count for ev in prof.key_averages() if ev.key.startswith(
             ("cudaLaunchKernel", "cudaGraphLaunch")))
     assert 0 < launches[True] < 1000 and launches[True] < launches[False], launches
+    m.close()
+
+
+def test_single_card_spans_hold_each_replay_and_wait(mesh_world):
+    """A warm predict under the profiler (two before it, so every shape is a
+    graph): each stage's graph launches are ``doppel.replay`` spans inside
+    it, each fetch a ``.wait`` span, nothing is captured, and a stage's
+    replays and waits fit inside it; a single title's one-dispatch replay
+    and its stream sync lie inside ``doppel.fused``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from doppelspeller_tpu_torch.models.gbt import GBTModel
+    from doppelspeller_tpu_torch.pipeline import Matcher
+    from doppelspeller_tpu_torch.utils import timing
+    from doppelspeller_tpu_torch.utils.io import single_title_set
+    from test_torch_helpers import MODEL
+
+    cfg, truth, queries = mesh_world
+    m = Matcher(cfg.with_(cascade_impl="device"), truth, GBTModel.load(str(MODEL)), device="cuda",
+                use_index_checkpoint=False)
+    title = next(t for t, tr in zip(queries.titles, queries.transformed) if tr not in m.reverse)
+    for _ in range(2):
+        m.predict(queries)
+        m.predict(single_title_set(title, cfg), single=True)
+    torch.cuda.synchronize()
+    timing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        m.predict(queries)
+        m.predict(single_title_set(title, cfg), single=True)
+    spans = timing.recorded()
+    by_id = {s.id: s for s in spans}
+
+    def stage_of(s):
+        while s.parent is not None and by_id[s.parent].name != "doppel.predict":
+            s = by_id[s.parent]
+        return s.name
+
+    assert not [s for s in spans if s.name.startswith("doppel.capture")]
+    graphs = {}
+    for s in spans:
+        if s.name == "doppel.replay":
+            graphs.setdefault(stage_of(s), set()).add(s.counts["graph"])
+    assert graphs == {"doppel.retrieval": {"topk"}, "doppel.fuzzy": {"FuzzyEngine"},
+                      "doppel.model": {"RerankEngine"}, "doppel.fused": {"FusedServe"}}
+    for s in spans:
+        if s.name in ("doppel.retrieval", "doppel.fuzzy", "doppel.model", "doppel.fused"):
+            inner = [c for c in spans if c.parent is not None and stage_of(c) == s.name
+                     and c.call == s.call and (c.name == "doppel.replay" or c.name.endswith(".wait"))]
+            assert inner and sum(c.duration_ns for c in inner) <= s.duration_ns, s.name
     m.close()
 
 

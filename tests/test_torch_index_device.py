@@ -16,6 +16,7 @@ build and its mesh build).  Tolerances:
 
 import random
 import string
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -273,11 +274,18 @@ def test_matcher_with_the_device_build_predicts_as_the_host_build(mode):
     model = GBTModel.load(str(MODEL))
     res = {}
     for impl in ("host", "device"):
+        t = time.perf_counter()
         m = Matcher(cfg.with_(index_build_impl=impl), truth, model, device="cpu",
                     use_index_checkpoint=False)
+        total = time.perf_counter() - t
         assert m.index.built_on == impl
-        assert set(m.init_seconds) == {"load", "index", "retrieval", "rest"}
+        assert set(m.init_seconds) == {"load", "index", "retrieval", "words", "token_sort",
+                                       "fuzzy_engine", "rest"}
+        # the pieces follow one another: they sum to the construction's
+        # seconds, less the microseconds before the first and after the last
+        assert 0.0 <= total - sum(m.init_seconds.values()) < 0.005 + 0.01 * total
         res[impl] = m.predict(queries)
+        del m                   # freed here, not inside the next construction's seconds
     a, b = res["host"], res["device"]
     _bits_equal(a.match_title_id, b.match_title_id)
     _bits_equal(a.stage, b.stage)
