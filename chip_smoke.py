@@ -24,7 +24,13 @@ Phases, each printing its seconds; any failure exits non-zero:
    shapes (65,536 pairs, TL=64, WL=16 and 32): exactly equal.  After the
    folded main path, once more on the arguments of the largest
    ``window_best`` call that its untimed predict made; in the train phase
-   on every call that training made.
+   on every call that training made.  Then kernel F (whole-title LCS,
+   ``levenshtein.lcs``) against ``lcs_plain`` at the main paths' shapes:
+   65,536 pairs at TL 32 and 64 (a fuzzy chunk), 12,800 at TL 64 (a served
+   block), 4,096 at 255 (the host redo's widest bucket): exactly equal;
+   its time by CUDA events, the plain version's, the bound and the share.
+   Both main paths (10, 11) must launch F, and the folded one must never
+   call ``lcs_plain``.
 5. kernel C (row gather): 3,072 rows of a random (50,653, 65,536) packed
    index (500k titles), exactly equal to ``index_select``, and timed
    beside it in alternating windows.  The kernel and its entry stay;
@@ -570,6 +576,49 @@ def check_kernel_b(torch, fk):
         out["bound_by"] = st["bound_by"]
     for k in ("ms", "plain_ms", "bound_ms"):
         out[k] = out[f"{k}_wl32"]
+    return out
+
+
+def check_kernel_f(torch, lev):
+    """Kernel F against ``lcs_plain`` at the main paths' shapes (random
+    codes of the 38-letter alphabet, lengths uniform up to past the width):
+    exactly equal; its time, the plain version's and the bound of what
+    these pairs need.  Returns the stats by shape, the 65,536-pair TL 64
+    call's at the top level."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = {"max_abs_err": 0.0, "library_ms": None, "shapes": {}}
+    for B, TL in ((65_536, 32), (65_536, 64), (12_800, 64), (4_096, 255)):
+        def side(len_dtype):
+            chars = torch.randint(1, 38, (B, TL), device="cuda", generator=g, dtype=torch.int32)
+            n = torch.randint(0, TL + 9, (B,), device="cuda", generator=g, dtype=torch.int64)
+            chars = torch.where(torch.arange(TL, device="cuda")[None] < n[:, None], chars, 0)
+            return chars.to(torch.uint8), n.to(len_dtype)
+        # the fuzzy stage passes int64 lengths, the features int32
+        (a, la), (b, lb) = side(torch.int64), side(torch.int32)
+        args = (a, la, b, lb)
+        got, want = lev.lcs(*args), lev.lcs_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel F differs from lcs_plain ({B} pairs, TL={TL})")
+        # a call's device time is tens of microseconds, below the wrapper's
+        # host time: a spin ahead of each window keeps the host out of it
+        ms = alternating_ms({"F": lambda: lev.lcs(*args)}, calls=10)["F"]
+        plain = cuda_ms(lambda: lev.lcs_plain(*args), reps=3, calls=1)
+        # what these pairs need: each valid character of b steps over the
+        # ceil(TL/32) words of V, three operations a word (as kernel B's
+        # steps count); the characters inside the lengths, both lengths and
+        # the output
+        na = la.clamp(min=0, max=TL).to(torch.float64)
+        nb = lb.clamp(min=0, max=TL).to(torch.float64)
+        steps = float(nb.sum()) * ((TL + 31) // 32)
+        nbytes = float(na.sum() + nb.sum()) + B * (8 + 4 + 4)
+        bound_ms, bound_by = bound(LCS_STEP_OPS * steps, INT32_OPS_PER_S, nbytes)
+        print(f"# kernel F {B} pairs, TL={TL}: exactly equal; {ms:.4f} ms, plain {plain:.3f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {steps:.3e} word steps x {LCS_STEP_OPS} "
+              f"operations, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of it", flush=True)
+        out["shapes"][f"{B}x{TL}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+    out.update({k: out["shapes"]["65536x64"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -2309,6 +2358,7 @@ def main() -> int:
     from doppelspeller_tpu_torch import _build
     from doppelspeller_tpu_torch.ops import features_kernels as fk
     from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+    from doppelspeller_tpu_torch.ops import levenshtein as lev
     phase("device", t0)
 
     t = time.time()
@@ -2326,6 +2376,9 @@ def main() -> int:
     t = time.time()
     kb = check_kernel_b(torch, fk)
     phase("kernel_b", t)
+    t = time.time()
+    kf = check_kernel_f(torch, lev)
+    phase("kernel_f", t)
     t = time.time()
     d = union_inputs(torch)
     kc = check_kernel_c(torch, jk, d)
@@ -2352,7 +2405,7 @@ def main() -> int:
     # A that read the union's rows through their ids
     counters = {name: (fn, "launches") for name, fn in
                 (("A", jk.score_window_select), ("B", fk.window_best), ("C", jk.gather_rows),
-                 ("D", jk.score_full), ("E", jk.jaccard_topk_v1))}
+                 ("D", jk.score_full), ("E", jk.jaccard_topk_v1), ("F", lev.lcs))}
     counters["A gathering"] = (jk.score_window_select, "gathered")
     # CUDA graphs of the one-dispatch path, captured and replayed
     from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
@@ -2395,8 +2448,11 @@ def main() -> int:
     from doppelspeller_tpu_torch.ops import features
 
     slab = Spy(features, "window_best")
-    folded, res, la, first_f = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
-                                             counters, ("A", "B"), "folded", untimed=slab)
+    with Spy(lev, "lcs_plain") as plain_lcs:
+        folded, res, la, first_f = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
+                                                 counters, ("A", "B", "F"), "folded", untimed=slab)
+    if plain_lcs.calls:
+        raise AssertionError(f"the folded main path called lcs_plain {len(plain_lcs.calls)} times")
     if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E", "A gathering")):
         raise AssertionError(f"the 500k default config left the folded path: {la}")
     t = time.time()
@@ -2440,7 +2496,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("construction", t)
     exact, res_x, lx, first_x = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x,
-                                              model, counters, ("A", "B"), "exact")
+                                              model, counters, ("A", "B", "F"), "exact")
     if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"]
             or lx["A gathering"] != lx["A"]):
         raise AssertionError(f"the 150k default config did not take exact retrieval with A "
@@ -2609,6 +2665,10 @@ def main() -> int:
                                 "mesh": {k: v["launches"]["B"] for k, v in mesh_stats.items()
                                          if isinstance(v, dict) and "launches" in v}},
               **{k: kb[k] for k in kb if k.endswith(("_wl16", "_wl32")) or k == "slab"}),
+        entry("lcs", "F", "lcs_pairs.cu", "levenshtein.py::lcs_kernel (an XLA scan, no Pallas kernel)",
+              f"folded main path (500k) and the mesh phase (launches: both); exact main path (150k) "
+              f"launched it {lx['F']} times", plus(la), kf,
+              launches_by_path={"folded": la["F"], "exact": lx["F"]}, shapes=kf["shapes"]),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
         # beside index_select, is launched by no path of Matcher.predict, and

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "doppel_score_window_select": ("score_window.cu",
                                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P]),
     "doppel_window_best": ("window_lcs.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "doppel_lcs_pairs": ("lcs_pairs.cu", [_P, _L, _P, _I, _P, _L, _P, _I, _P, _I, _I, _I, _P]),
     "doppel_gather_rows": ("gather_rows.cu", [_P, _P, _P, _I, _L, _P]),
     "doppel_score_full": ("score_full.cu",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P]),

@@ -15,7 +15,9 @@ counterpart of ``_features_kernel``.  Layout:
 
 The sliding-window ratios go through kernel B (``ops/features_kernels.py``)
 for words of at most 32 characters and through the plain window DP
-(``window_best_dp``) for longer ones, as in the reference.  The
+(``window_best_dp``) for longer ones, as in the reference.  The two
+whole-title ratios ([4], [5]) take ``levenshtein.lcs``: kernel F
+(``csrc/lcs_pairs.cu``) on CUDA tensors, ``lcs_plain`` on CPU tensors.  The
 reconstruction's one-hot matmuls of the TPU version are gathers here.
 
 Two host entries build feature matrices over many pairs:

@@ -46,6 +46,7 @@ import torch
 
 from doppelspeller_tpu_torch import _build
 from doppelspeller_tpu_torch.ops import features_kernels as fk
+from doppelspeller_tpu_torch.ops import levenshtein as lev
 
 # titles per chunk of the plain versions (bounds their (U, chunk) unpacked bits)
 _PLAIN_CHUNK = 1 << 16
@@ -528,10 +529,10 @@ jaccard_topk_v1.launches = 0
 # ------------------------------------------------------- graph bookkeeping
 
 def launch_counters():
-    """(kernel wrapper, counter) of every launch count, B's too."""
+    """(kernel wrapper, counter) of every launch count, B's and F's too."""
     return [(score_window_select, "launches"), (score_window_select, "gathered"),
             (gather_rows, "launches"), (score_full, "launches"),
-            (jaccard_topk_v1, "launches"), (fk.window_best, "launches")]
+            (jaccard_topk_v1, "launches"), (fk.window_best, "launches"), (lev.lcs, "launches")]
 
 
 def uncounted(capture):

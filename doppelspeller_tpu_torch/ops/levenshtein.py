@@ -1,14 +1,18 @@
-"""Batched LCS / Levenshtein-ratio (indel distance) in plain PyTorch.
+"""Batched LCS / Levenshtein-ratio (indel distance) on the device.
 
 The JAX package's ``ops/levenshtein.py::lcs_kernel``: the Crochemore-
 Iliopoulos-Pinzón bit-parallel LCS with the DP column over ``a`` packed into
 ⌈La/32⌉ 32-bit words and explicit carry and borrow chains across words.
-PyTorch has no uint32 add or popcount, so every 32-bit word is held in an
-int64 lane: sums and differences are taken in 64 bits, the carry and borrow
-are read from bit 32 and the sign, and the result is masked back to 32 bits;
-the popcount is a SWAR reduction.  ratio(a, b) = 200·LCS / (|a| + |b|).
-``batched_ratio`` and ``ratio_rounded`` are the JAX module's host wrappers
-over numpy pairs, grouped by length bucket.
+``lcs`` takes one of two routes, by the tensors' device: CUDA tensors
+launch kernel F (``csrc/lcs_pairs.cu``, one pair a thread), CPU tensors run
+``lcs_plain``; there is no other route, and the two give the same integers.
+``lcs_plain`` is the plain PyTorch version: PyTorch has no uint32 add or
+popcount, so every 32-bit word is held in an int64 lane: sums and
+differences are taken in 64 bits, the carry and borrow are read from bit 32
+and the sign, and the result is masked back to 32 bits; the popcount is a
+SWAR reduction.  ratio(a, b) = 200·LCS / (|a| + |b|).  ``batched_ratio``
+and ``ratio_rounded`` are the JAX module's host wrappers over numpy pairs,
+grouped by length bucket.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from doppelspeller_tpu_torch import _build
 from doppelspeller_tpu_torch.config import Config, get_config
 
 _MASK32 = 0xFFFFFFFF
@@ -31,11 +36,12 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
-def lcs(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
-    """LCS length per pair.
+def lcs_plain(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """LCS length per pair, in plain PyTorch (``lcs``'s CPU route).
 
     a: uint8 (B, La) zero-padded, la: int (B,); likewise b/lb.  Pad codes (0)
-    never match; positions past the lengths are ignored.  Returns int32 (B,)."""
+    never match; positions past the lengths are ignored, and a length past
+    the width reads as the width.  Returns int32 (B,)."""
     B, La = a.shape
     Lb = b.shape[1]
     dev = a.device
@@ -70,6 +76,55 @@ def lcs(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor, lb: torch.Tensor) ->
     ones = sum(popcount32(v) for v in V)
     # V starts as the mask over min(la, 32·n_words) bits and loses one per match
     return (torch.clamp(la, max=n_words * 32) - ones).to(torch.int32)
+
+
+# kernel F takes rows of at most this many characters
+WIDTH_MAX = 256
+
+
+def lcs(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """LCS length per pair: ``lcs_plain``'s integers.  CPU tensors take
+    ``lcs_plain``; CUDA tensors launch kernel F on the current stream.
+
+    On the card ``a`` and ``b`` are uint8 (B, ≤ 256) with contiguous rows
+    (a row stride of their own is taken: a column slice of a wider tensor),
+    ``la`` and ``lb`` contiguous int32 or int64 (B,), all on one card; any
+    other input raises.  Every uint8 value is a code, as in ``lcs_plain``:
+    codes past the 38-letter alphabet match their equals."""
+    B, La = a.shape
+    Lb = b.shape[1]
+    dev = a.device
+    if dev.type == "cpu":
+        return lcs_plain(a, la, b, lb)
+    if dev.type != "cuda":
+        raise RuntimeError(f"kernel F runs on CUDA tensors, not {dev}")
+    if b.shape[0] != B or la.shape != (B,) or lb.shape != (B,):
+        raise ValueError("lcs: shape mismatch")
+    if La > WIDTH_MAX or Lb > WIDTH_MAX:
+        raise ValueError(f"kernel F takes rows of at most {WIDTH_MAX} chars, got {La} and {Lb}")
+    if any(t.device != dev for t in (la, b, lb)):
+        raise ValueError("kernel F inputs must be on one device")
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8 or any(
+            t.dtype not in (torch.int32, torch.int64) for t in (la, lb)):
+        raise TypeError("kernel F takes uint8 characters and int32 or int64 lengths")
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    if (any(t.shape[1] > 1 and t.stride(1) != 1 for t in (a, b))
+            or not (la.is_contiguous() and lb.is_contiguous())):
+        raise ValueError("kernel F takes rows of contiguous characters and contiguous lengths")
+    with torch.cuda.device(dev):          # the launch goes to the tensors' card
+        rc = _build.lib().doppel_lcs_pairs(
+            a.data_ptr(), a.stride(0), la.data_ptr(), la.dtype == torch.int64,
+            b.data_ptr(), b.stride(0), lb.data_ptr(), lb.dtype == torch.int64,
+            out.data_ptr(), B, La, Lb, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "doppel_lcs_pairs")
+    _build.count(lcs)
+    return out
+
+
+lcs.launches = 0
 
 
 def floor_ratio(lcs_len: torch.Tensor, total: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,9 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
 ``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
-LCS), C (row gather), D (full Jaccard matrix) and E (sparse weights, exact
-top-k).  D's and E's kernels, and A with ``union_ids``, read the union's
+LCS), C (row gather), D (full Jaccard matrix), E (sparse weights, exact
+top-k) and F (whole-title LCS, bit for bit ``lcs_plain``, in a CUDA graph
+too).  D's and E's kernels, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
 against the same program run op by op, bit for bit, and the truth index
@@ -29,6 +30,7 @@ import torch
 
 from doppelspeller_tpu_torch.ops import features_kernels as fk
 from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
+from doppelspeller_tpu_torch.ops import levenshtein as lev
 
 pytestmark = pytest.mark.cuda
 
@@ -408,6 +410,112 @@ def test_kernel_b_every_length_and_common_count(cuda):
     assert len(torch.unique(rp)) > 90                        # of the 102 values -1..100
 
 
+# ------------------------------------------------------------------ kernel F
+
+def _f_inputs(seed, B, La, Lb, alphabet, device, len_dtype=torch.int64):
+    """Random pairs padded with zeros past their lengths (up to 8 past the
+    width), with the edges in the first rows: lengths 0, full and past the
+    width, an all-pad row, identical strings and an empty b."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, alphabet + 1, (B, La)).astype(np.uint8)
+    b = rng.integers(1, alphabet + 1, (B, Lb)).astype(np.uint8)
+    la = rng.integers(0, La + 9, B)
+    lb = rng.integers(0, Lb + 9, B)
+    if B >= 6 and La == Lb:
+        la[:6] = [0, La, La + 13, La, La - 1, La // 2]
+        lb[:6] = [Lb // 2, Lb, Lb, Lb + 3, La - 1, 0]
+        a[3] = 0                                        # all pad under a full length
+        b[4] = a[4]                                     # identical strings
+    a[np.arange(La)[None, :] >= la[:, None]] = 0
+    b[np.arange(Lb)[None, :] >= lb[:, None]] = 0
+    la, lb = la.astype(np.int64), lb.astype(np.int64)
+    out = [torch.from_numpy(x).to(device) for x in (a, la, b, lb)]
+    out[1], out[3] = out[1].to(len_dtype), out[3].to(len_dtype)
+    return out
+
+
+@pytest.mark.parametrize("B,La,Lb,alphabet,len_dtype", [
+    (4096, 32, 32, 37, torch.int64),      # a fuzzy chunk's tile at TL 32
+    (4096, 64, 64, 37, torch.int32),      # the features' tile, int32 lengths
+    (2048, 128, 128, 37, torch.int64),
+    (1024, 255, 255, 37, torch.int64),    # the host redo's widest bucket
+    (1024, 256, 256, 5, torch.int32),
+    (777, 40, 200, 37, torch.int64),      # ragged widths, La != Lb
+    (1000, 64, 64, 2, torch.int64),       # long LCS: carries across every word
+    (300, 64, 64, 255, torch.int64),      # codes past the alphabet match their equals
+    (129, 64, 64, 37, torch.int64),       # not a multiple of a block's pairs
+    (1, 64, 64, 37, torch.int32),
+    (0, 64, 64, 37, torch.int64),
+])
+def test_kernel_f_equals_plain_exactly(cuda, B, La, Lb, alphabet, len_dtype):
+    args = _f_inputs(B + La + Lb + alphabet, B, La, Lb, alphabet, cuda, len_dtype)
+    before = lev.lcs.launches
+    got = lev.lcs(*args)
+    assert lev.lcs.launches == before + (B > 0)
+    want = lev.lcs_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if B >= 6 and La == Lb:
+        assert got[0] == 0 and got[5] == 0 and got[3] == 0 and got[4] == args[1][4]
+
+
+def test_kernel_f_takes_strided_rows(cuda):
+    """Column slices of wider tensors, as the fuzzy stage passes its tiles:
+    each side's row stride is the kernel's own, with no copy."""
+    a, la, b, lb = _f_inputs(11, 3000, 96, 96, 37, cuda)
+    a_s, b_s = a[1:, :64], b[1:, 3:63]        # b's rows start off a 4-byte boundary
+    la, lb = la[1:].clamp(max=70), lb[1:].clamp(max=70)
+    assert not a_s.is_contiguous() and not b_s.is_contiguous()
+    got = lev.lcs(a_s, la, b_s, lb)
+    want = lev.lcs_plain(a_s.contiguous(), la, b_s.contiguous(), lb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_kernel_f_rejects_what_it_does_not_take(cuda):
+    a, la, b, lb = _f_inputs(12, 64, 64, 64, 37, cuda)
+    bad = [
+        (TypeError, (a.to(torch.int32), la, b, lb)),            # characters not uint8
+        (TypeError, (a, la.float(), b, lb)),                    # lengths neither int32 nor int64
+        (ValueError, (a, la.cpu(), b, lb)),                     # mixed devices
+        (ValueError, (a, la, b.cpu(), lb)),
+        (ValueError, (a[:, ::2], la, b[:, ::2], lb)),           # characters not contiguous
+        (ValueError, (a, la, b, lb[:32])),                      # shape mismatch
+        (ValueError, (torch.zeros((64, 257), dtype=torch.uint8, device=cuda), la, b, lb)),
+    ]
+    before = lev.lcs.launches
+    for exc, args in bad:
+        with pytest.raises(exc):
+            lev.lcs(*args)
+    wide = torch.zeros((4, 512), dtype=torch.int64, device=cuda)[:, ::128]
+    with pytest.raises(ValueError):                             # lengths not contiguous
+        lev.lcs(a[:4], wide[:, 0], b[:4], lb[:4])
+    assert lev.lcs.launches == before
+
+
+def test_kernel_f_replays_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph (no allocation, no sync inside), replayed on
+    new inputs copied into the captured tensors: equal to the eager call."""
+    args = _f_inputs(13, 12_800, 64, 64, 37, cuda)
+    static = [t.clone() for t in args]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        lev.lcs(*static)                                        # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lev.lcs(*static)
+    for seed in (14, 15):
+        fresh = _f_inputs(seed, 12_800, 64, 64, 37, cuda)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, lev.lcs(*fresh))
+        assert torch.equal(out, lev.lcs_plain(*fresh))
+
+
 # ------------------------------------------------------------------ training
 
 def _train_data(n, seed):
@@ -496,9 +604,9 @@ def test_features_for_pairs_on_the_card_equals_the_cpu(cuda):
     pq, pt = rng.randint(0, 400, 3000), rng.randint(0, 2000, 3000)
     counts = WordCounts(truth).matrix(truth.transformed)
     args = (pq, pt, queries.encoded, queries.lengths, truth.encoded, truth.lengths, counts, cfg)
-    before = fk.window_best.launches
+    before, before_f = fk.window_best.launches, lev.lcs.launches
     card = features.features_for_pairs(*args, cuda)
-    assert fk.window_best.launches > before
+    assert fk.window_best.launches > before and lev.lcs.launches > before_f
     cpu = features.features_for_pairs(*args, "cpu")
     np.testing.assert_array_equal(np.isnan(card), np.isnan(cpu))
     np.testing.assert_array_equal(np.nan_to_num(card[:, :36]), np.nan_to_num(cpu[:, :36]))
@@ -625,8 +733,10 @@ def test_single_card_graphs_are_its_op_by_op_run_bit_for_bit(mesh_world, mode):
     w = m.scorer.workers
     w.use_graphs = False
     v0, p0 = m.scorer.topk(queries)
+    before_f = lev.lcs.launches
     r0 = m.predict(queries)
     assert not w.graphs
+    assert lev.lcs.launches > before_f                  # fuzzy and the features launch kernel F
     w.use_graphs = True
     results = [m.predict(queries) for _ in range(3)]
     v1, p1 = m.scorer.topk(queries)
