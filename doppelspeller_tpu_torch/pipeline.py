@@ -79,7 +79,6 @@ from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_inde
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
 from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer, build_sharded_index
 from doppelspeller_tpu_torch.parallel.workers import Mesh, replicate, row_parallel
-from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils import timing
 from doppelspeller_tpu_torch.utils.io import TitleSet, as_int64, load_ground_truth, read_csv
 
@@ -236,10 +235,7 @@ class Matcher:
             self.truth_words = split_words_host(truth.encoded, truth.lengths)
             wlen_max = self.truth_words[1].max(axis=1).astype(np.int32)
         with piece("token_sort"):
-            ts = [" ".join(sorted(t.split())) for t in truth.transformed]
-            ts_enc = T.encode_titles(ts, config.max_characters)
-            ts_len = np.array([min(len(s), config.max_characters) for s in ts], np.int32)
-            self.ts_truth = (ts_enc, ts_len)
+            self.ts_truth = ts_enc, ts_len = truth.encoded_token_sorted
         with piece("fuzzy_engine"):
             self.fuzzy = FuzzyEngine(truth.encoded, truth.lengths, ts_enc, ts_len, wlen_max,
                                      config, self.device)

@@ -66,26 +66,25 @@ class TitleSet:
 
     @property
     def encoded_wo(self) -> tuple:
-        """Spaceless encodings (enc uint8[B, L], len int32[B]), built once."""
+        """Spaceless encodings (enc uint8[B, L], len int32[B]), built once
+        from the codes."""
         if self._wo is None:
-            with timing.span("doppel.encode.wo", titles=len(self)):
-                L = self.encoded.shape[1]
-                wo = [t[:L].replace(" ", "") for t in self.transformed]
-                enc = T.encode_titles(wo, L)
-                ln = np.array([min(len(t), L) for t in wo], dtype=np.int32)
-                self._wo = (enc, ln)
+            with timing.span("doppel.encode.wo", titles=len(self)) as sp:
+                if len(self) < T.FLAT_MIN_TITLES:
+                    self._wo = T.spaceless_codes_plain(self.transformed, self.encoded.shape[1])
+                    sp.set(per_title=len(self))
+                else:
+                    self._wo = T.spaceless_codes(self.encoded, self.lengths)
+                    sp.set(per_title=0)
         return self._wo
 
     @property
     def encoded_token_sorted(self) -> tuple:
         """Token-sorted encodings (enc uint8[B, L], len int32[B]), built once."""
         if self._ts is None:
-            with timing.span("doppel.encode.token_sort", titles=len(self)):
-                L = self.encoded.shape[1]
-                ts = [" ".join(sorted(t.split())) for t in self.transformed]
-                enc = T.encode_titles(ts, L)
-                ln = np.array([min(len(t), L) for t in ts], dtype=np.int32)
-                self._ts = (enc, ln)
+            with timing.span("doppel.encode.token_sort", titles=len(self)) as sp:
+                self._ts = T.token_sorted_codes(self.transformed, self.encoded.shape[1])
+                sp.set(per_title=len(self) if len(self) < T.FLAT_MIN_TITLES else 0)
         return self._ts
 
     def trigram_ids(self) -> np.ndarray:
@@ -104,10 +103,10 @@ class TitleSet:
     ) -> "TitleSet":
         max_chars = config.max_characters if config else T.MAX_CHARACTERS
         n_grams = config.n_grams if config else T.N_GRAMS
-        with timing.span("doppel.encode", titles=len(titles)):
-            transformed = T.transform_titles(titles, max_chars, n_grams)
-            encoded = T.encode_titles(transformed, max_chars)
-            lengths = np.array([min(len(t), max_chars) for t in transformed], dtype=np.int32)
+        with timing.span("doppel.encode", titles=len(titles)) as sp:
+            transformed, encoded, lengths, per_title = T.transform_encode_titles(
+                titles, max_chars, n_grams)
+            sp.set(per_title=per_title)
         if ids is None:
             ids = np.arange(len(titles), dtype=np.int64)
         return cls(
