@@ -1189,6 +1189,28 @@ def read_counts(counters):
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
+class FusedGraphs:
+    """Captures and replays of the one-dispatch path's graphs (named
+    ``FusedServe``) on every ``Workers``, as ``count_fused_graphs`` counts
+    them."""
+
+    captures = 0
+    replays = 0
+
+
+def count_fused_graphs(Workers):
+    """Wrap ``Workers.capture`` and ``.replay`` so that each one of a
+    ``FusedServe`` graph adds to ``FusedGraphs``."""
+    for method, counter in (("capture", "captures"), ("replay", "replays")):
+        def counted(self, i, key, *args, _real=getattr(Workers, method), _counter=counter, **kwargs):
+            out = _real(self, i, key, *args, **kwargs)
+            if key[0] == "FusedServe":
+                setattr(FusedGraphs, _counter, getattr(FusedGraphs, _counter) + 1)
+            return out
+
+        setattr(Workers, method, counted)
+
+
 def check_prediction(res, actual, n):
     accuracy = float((res.match_title_id == actual).mean())
     if res.match_title_id.shape != (n,) or not bool((res.prediction >= 0).all()):
@@ -1298,7 +1320,7 @@ def replay_ms(fs, queries):
     """Milliseconds of one replay of a request whose graph exists, by CUDA
     events (median of 20)."""
     _, key, _ = fs.request(queries, np.arange(len(queries)))
-    return cuda_ms(fs._graphs[key].graph.replay, reps=20, calls=1)
+    return cuda_ms(fs.scorer.workers.graphs[0, key].graph.replay, reps=20, calls=1)
 
 
 def profile_replay(torch, fs, queries, label, stats):
@@ -1308,6 +1330,7 @@ def profile_replay(torch, fs, queries, label, stats):
     from torch.profiler import ProfilerActivity, profile
 
     rows = np.arange(len(queries))
+    fs.dispatch(queries, rows)          # captured again where a later engine's build dropped it
     counts = []
     for eager in (False, True):
         torch.cuda.synchronize()
@@ -1328,7 +1351,6 @@ def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
     (stats, the 128-query engine and a request whose graph it holds) for
     ``profile_replay``."""
     from doppelspeller_tpu_torch import cli
-    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
     from doppelspeller_tpu_torch.utils.io import TitleSet, single_title_set
 
     cfg = matcher.cfg
@@ -1366,7 +1388,7 @@ def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
              "off_p50_ms": float(np.percentile(lat_off, 50)),
              "off_p99_ms": float(np.percentile(lat_off, 99)), "launches": launches,
              "first_pass_seconds": warm_s,
-             "capture_seconds": {str(k): v for k, v in fs.capture_seconds.items()},
+             "capture_seconds": matcher.scorer.workers.capture_seconds.get("FusedServe", 0.0),
              "off_equal": n_same}
     probe = single_title_set(titles[0], cfg)
     stats["replay_ms"] = replay_ms(fs, probe)
@@ -1377,8 +1399,8 @@ def serve_fused_path(torch, jk, fk, matcher, queries, counters, smi, label):
           f"{stats['off_p50_ms']:.3f} ms, p99 {stats['off_p99_ms']:.3f} ms; results equal on "
           f"{n_same}/{SERVE_OFF} (ids, titles, stages; predictions to 1e-6)", flush=True)
     print(f"# serve_fused {label}: launches {json.dumps(launches)}; one replay {stats['replay_ms']:.3f} "
-          f"ms by CUDA events (median of 20); captures (key: s) "
-          f"{json.dumps({k: round(v, 3) for k, v in stats['capture_seconds'].items()})}", flush=True)
+          f"ms by CUDA events (median of 20); captures {stats['capture_seconds']:.3f} s in all",
+          flush=True)
     if n_same != SERVE_OFF:
         raise AssertionError(f"serve_fused {label}: the fused path and 'off' differ on "
                              f"{SERVE_OFF - n_same} of {SERVE_OFF} titles")
@@ -2408,10 +2430,11 @@ def main() -> int:
                  ("D", jk.score_full), ("E", jk.jaccard_topk_v1), ("F", lev.lcs))}
     counters["A gathering"] = (jk.score_window_select, "gathered")
     # CUDA graphs of the one-dispatch path, captured and replayed
-    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+    from doppelspeller_tpu_torch.parallel.workers import Workers
 
-    counters["captures"] = (FusedServe, "captures")
-    counters["replays"] = (FusedServe, "replays")
+    count_fused_graphs(Workers)
+    counters["captures"] = (FusedGraphs, "captures")
+    counters["replays"] = (FusedGraphs, "replays")
 
     # ---- small worlds: card vs the plain CPU path ----
     t = time.time()

@@ -39,6 +39,7 @@ from doppelspeller_tpu_torch.config import Config, SPACE_CODE
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.features_kernels import WL_MAX, window_best
 from doppelspeller_tpu_torch.ops.levenshtein import floor_ratio, lcs
+from doppelspeller_tpu_torch.ops.tiles import host_word_grid, title_grid
 
 FEATURES_COUNT = 66
 NUM_WORD_SLOTS = 15
@@ -270,8 +271,8 @@ def features_for_pairs(
 
     L = q_enc.shape[1]
     pair_len = np.maximum(q_len[pair_q], truth_len[pair_t])
-    buckets = [b for b in cfg.length_buckets if b < L] + [L]
-    w_buckets = [b for b in (8, 16, 32, 64) if b < L] + [L]
+    buckets = title_grid(cfg, L)
+    w_buckets = host_word_grid(L)
     tb_idx = np.searchsorted(np.asarray(buckets), np.minimum(pair_len, L))
     wb_idx = np.searchsorted(np.asarray(w_buckets), np.maximum(wlen_max[pair_t], 1))
     # a word is a substring of its title, so its bucket is no wider than the
@@ -327,8 +328,8 @@ def construct_features(
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     L = q_enc.shape[1]
-    buckets = [b for b in cfg.length_buckets if b < L] + [L]
-    w_buckets = [8, 16, 32, 64, L]
+    buckets = title_grid(cfg, L)
+    w_buckets = host_word_grid(L, every=True)
     tb_idx = np.searchsorted(np.asarray(buckets), np.maximum(q_len, t_len))
     wb_idx = np.searchsorted(np.asarray(w_buckets), np.maximum(wlen.max(axis=1), 1))
 

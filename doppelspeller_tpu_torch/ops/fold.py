@@ -24,7 +24,7 @@ from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE, Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.index_device import build_shard, ids_width
 from doppelspeller_tpu_torch.ops.jaccard_kernels import score_window_select, select_topk_windowed
-from doppelspeller_tpu_torch.utils import text as T
+from doppelspeller_tpu_torch.ops.tiles import query_block, trigram_block
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
 LOGGER = logging.getLogger(__name__)
@@ -117,24 +117,16 @@ class IdBlockPlan:
 
 def plan_id_blocks(queries: TitleSet, config: Config,
                    rows: Optional[np.ndarray] = None) -> List[IdBlockPlan]:
-    """Chunk queries into fixed-width id blocks; LQ is the smallest of
-    (max_query_trigrams, 128, 253) that holds every query's trigrams."""
+    """Chunk queries into fixed-width id blocks of the engine's query block
+    and LQ (``ops/tiles.py``)."""
     cfg = config
     if rows is None:
         rows = np.arange(len(queries), dtype=np.int64)
     rows = np.asarray(rows, dtype=np.int64)
     if len(rows) == 0:
         return []
-    qb = int(cfg.fold_query_block) or cfg.query_block
-    ids_all = queries.trigram_ids()[rows]
-    counts = (ids_all != T.BIG_TRIGRAM).sum(axis=1)
-    need = int(counts.max(initial=1))
-    lq = next(b for b in (cfg.max_query_trigrams, 128, 253) if need <= b or b == 253)
-    if ids_all.shape[1] < lq:
-        ids_all = np.concatenate([
-            ids_all,
-            np.full((ids_all.shape[0], lq - ids_all.shape[1]), T.BIG_TRIGRAM, np.int32),
-        ], axis=1)
+    qb = query_block(cfg, folded=True)
+    ids_all, lq = trigram_block(queries.trigram_ids()[rows], cfg)
     ids_all = np.minimum(ids_all[:, :lq], np.int32(V))
     plans: List[IdBlockPlan] = []
     for s in range(0, len(rows), qb):

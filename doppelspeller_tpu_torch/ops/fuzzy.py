@@ -23,6 +23,7 @@ from torch import nn
 from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.levenshtein import rounded_ratio
+from doppelspeller_tpu_torch.ops.tiles import title_grid
 from doppelspeller_tpu_torch.utils import timing
 
 # pairs scored per LCS call (bounds the (pairs, TL, words) temporaries)
@@ -143,7 +144,7 @@ class FuzzyEngine(nn.Module):
         L = q_enc.shape[1]
         pair_len = np.maximum.reduce([q_len[pair_q], t_len_host[pair_t],
                                       ts_q_len[pair_q], ts_t_len_host[pair_t]])
-        buckets = [b for b in self.cfg.length_buckets if b < L] + [L]
+        buckets = title_grid(self.cfg, L)
         bi = np.searchsorted(np.asarray(buckets), pair_len)
 
         def put(x, dtype=None):

@@ -24,6 +24,7 @@ import torch
 
 from doppelspeller_tpu_torch import _build
 from doppelspeller_tpu_torch.config import Config, get_config
+from doppelspeller_tpu_torch.ops.tiles import title_grid
 
 _MASK32 = 0xFFFFFFFF
 
@@ -156,7 +157,7 @@ def batched_ratio(enc_a: np.ndarray, len_a: np.ndarray, enc_b: np.ndarray, len_b
     len_a = np.asarray(len_a, dtype=np.int32)
     len_b = np.asarray(len_b, dtype=np.int32)
     out = np.zeros(len(len_a), dtype=np.float32)
-    buckets = [b for b in cfg.length_buckets if b < enc_a.shape[1]] + [enc_a.shape[1]]
+    buckets = title_grid(cfg, enc_a.shape[1])
     bucket_idx = np.searchsorted(np.asarray(buckets), np.maximum(len_a, len_b))
     for bi, bkt in enumerate(buckets):
         sel = np.flatnonzero(bucket_idx == bi)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE, Config
+from doppelspeller_tpu_torch.ops.tiles import query_block, trigram_block
 from doppelspeller_tpu_torch.utils import text as T
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
@@ -208,31 +209,22 @@ def plan_query_blocks(queries: TitleSet, index: TruthIndex, config: Config,
     """Pack queries into blocks of ``query_block`` with a trigram-id union
     of at most ``max(union_buckets)`` slots; a block whose union overflows
     is split in half recursively (in order, so the plans keep the order of
-    ``rows``).  LQ is the smallest of (max_query_trigrams, 128, 253) that
-    holds every query's trigrams.  ``w_val`` is the real IDF (0 for a
-    trigram unobserved in truth); ``max_intersection`` sums the
-    IDF-or-max-IDF fallback in float64."""
+    ``rows``).  LQ is the planners' one rule (``ops/tiles.py``).  ``w_val``
+    is the real IDF (0 for a trigram unobserved in truth);
+    ``max_intersection`` sums the IDF-or-max-IDF fallback in float64."""
     cfg = config
     if rows is None:
         rows = np.arange(len(queries), dtype=np.int64)
     rows = np.asarray(rows, dtype=np.int64)
     if len(rows) == 0:
         return []
-    qb = cfg.query_block
+    qb = query_block(cfg, folded=False)
     buckets = sorted(cfg.union_buckets or (qb * 32,))
     union_cap = buckets[-1]
     BIG = T.BIG_TRIGRAM
 
-    ids_all = queries.trigram_ids()[rows]
+    ids_all, lq = trigram_block(queries.trigram_ids()[rows], cfg)
     valid_all = ids_all != BIG
-    need = int(valid_all.sum(axis=1).max(initial=1))
-    lq = next(b for b in (cfg.max_query_trigrams, 128, 253) if need <= b or b == 253)
-    if ids_all.shape[1] < lq:
-        ids_all = np.concatenate([
-            ids_all, np.full((ids_all.shape[0], lq - ids_all.shape[1]), BIG, np.int32),
-        ], axis=1)
-        valid_all = ids_all != BIG
-    lq = min(lq, ids_all.shape[1])
 
     clipped = np.clip(ids_all, 0, index.idf.shape[0] - 1)
     idf_g = index.idf[clipped]

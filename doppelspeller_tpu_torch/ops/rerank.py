@@ -22,6 +22,7 @@ from doppelspeller_tpu_torch.config import Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.models.gbt import GBTModel, predict_forest_margin
 from doppelspeller_tpu_torch.ops.features import features_kernel, gather_word_chars
+from doppelspeller_tpu_torch.ops.tiles import host_word_grid, title_grid
 from doppelspeller_tpu_torch.utils import timing
 
 # pairs scored per features + forest call: one full wave-A slab at the
@@ -131,8 +132,8 @@ class RerankEngine(nn.Module):
         L = q_enc.shape[1]
         pair_len = np.maximum(q_len[pair_q], t_len_host[pair_t])
         max_word = np.maximum(self._wlen_max[pair_t], 1)
-        buckets = [b for b in self.cfg.length_buckets if b < L] + [L]
-        w_buckets = [8, 16, 32, 64, L]
+        buckets = title_grid(self.cfg, L)
+        w_buckets = host_word_grid(L, every=True)
         tb = np.searchsorted(np.asarray(buckets), pair_len)
         wb = np.searchsorted(np.asarray(w_buckets), max_word)
 

@@ -11,32 +11,30 @@ static (tlr, wl) bucket.  It returns one packed stats matrix and the
 candidates, in the reference's row order.
 
 On the card each static key (engine, union size, LQ, fuzzy and model
-tiles) is captured once as a ``torch.cuda.CUDAGraph``, at its first request
-after a warm-up run on a side stream, all graphs in one memory pool.  A
-request then costs one copy of one pinned buffer into the graph's static
-input, one replay, one copy of the packed result into pinned memory and one
-stream sync.  A capture or replay that fails raises; nothing falls back to
-eager execution.  On the CPU the same function runs eagerly.
+tiles) is a CUDA graph in the retrieval scorer's ``Workers``
+(``parallel/workers.py``): captured at its first request, which answers
+with the capture's op-by-op warm-up, then replayed on the caller's stream,
+with one copy of a pinned buffer in and one out.  A failed capture or
+replay raises.  Where the workers run op by op (the CPU, ``use_graphs =
+False``), so does the program.
 
-The model stage's bucket covers at least 99.9 % of the truth titles; the
-program also returns each row's probe (its candidates' longest title and
-longest word), and a row past the bucket is decided again by the matcher's
-host stages on the fetched candidates, as in the reference.
+Each row's probe (its candidates' longest title and word) rides along: the
+cascade (``pipeline.Matcher._stage_fused``) decides the result and sends a
+row past the static model bucket (at least 99.9 % of the truth titles) to
+its host stages, as the reference does.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
 from doppelspeller_tpu_torch.ops.fold import plan_id_blocks
 from doppelspeller_tpu_torch.ops.ngram_index import plan_query_blocks
-from doppelspeller_tpu_torch.pipeline import STAGE_FUZZY, STAGE_MODEL, STAGE_NONE
+from doppelspeller_tpu_torch.ops.tiles import device_word_grid, fuzzy_tile_bound, query_block, title_grid
 from doppelspeller_tpu_torch.utils import timing
 
 LOGGER = logging.getLogger(__name__)
@@ -68,7 +66,7 @@ def fused_cascade(retrieval, fuzzy, rerank, ids: torch.Tensor, union_ids: Option
 
 
 def _segments(u: int, qb: int, lq: int, tlq: int) -> Tuple[List[tuple], int]:
-    """The request buffer's layout: [(name, dtype, shape, byte offset)]
+    """The request buffer's layout: [(name, dtype, shape, byte slice)]
     with each segment 16-byte aligned, and its size in bytes."""
     segs = [("union", np.int32, (u,))] if u else []
     segs += [("ids", np.int32, (qb, lq)), ("q_len", np.int32, (qb,)),
@@ -77,76 +75,58 @@ def _segments(u: int, qb: int, lq: int, tlq: int) -> Tuple[List[tuple], int]:
              ("q_wo", np.uint8, (qb, tlq))]
     out, off = [], 0
     for name, dt, shape in segs:
-        out.append((name, dt, shape, off))
-        off += -(-int(np.prod(shape)) * np.dtype(dt).itemsize // 16) * 16
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        out.append((name, dt, shape, slice(off, off + n)))
+        off += -(-n // 16) * 16
     return out, off
 
 
 _TORCH_DTYPE = {np.int32: torch.int32, np.uint8: torch.uint8}
 
 
-@dataclass
-class _Graph:
-    """One captured static key: the graph, its static input and packed
-    output, their pinned host twins, and the kernel launches one replay makes."""
-
-    graph: torch.cuda.CUDAGraph
-    static_in: torch.Tensor
-    out: torch.Tensor
-    host_in: torch.Tensor
-    host_out: torch.Tensor
-    launches: List[int]
-
-
 class FusedServe:
-    """The one-dispatch path over a Matcher's resident engines.
+    """The one-dispatch path's device program over a truth database's
+    resident engines: the retrieval scorer (``ops/jaccard.py``), whose
+    ``workers`` keep its graphs, and the fuzzy and model engines.  ``cfg``
+    sets the query block and the cascade's settings; ``truth_lengths``
+    size the static model bucket."""
 
-    ``captures`` and ``replays`` count the CUDA graphs captured and replayed
-    by every instance, beside the kernel wrappers' ``launches``."""
-
+    # the graphs are counted in the workers' ``captures["FusedServe"]``;
+    # kept at 0 for benchmark/drive.py, whose capture count adds it
     captures = 0
-    replays = 0
 
-    def __init__(self, matcher):
-        self.m = matcher
-        cfg = self.cfg = matcher.cfg
-        self.device = matcher.device
-        folded = matcher.scorer.folded
-        self.mode = "folded" if folded is not None else "exact"
-        self.retrieval = folded if folded is not None else matcher.scorer.exact
-        self.fuzzy = matcher.fuzzy
-        self.rerank = matcher.rerank
+    def __init__(self, cfg, scorer, fuzzy, rerank, truth_lengths: np.ndarray):
+        self.cfg, self.scorer, self.fuzzy, self.rerank = cfg, scorer, fuzzy, rerank
+        self.device = scorer.device
+        self.mode = "folded" if scorer.folded is not None else "exact"
+        self.retrieval = scorer.engine(0)
         self.k = cfg.top_n_predicting
-        self.qb = (cfg.fold_query_block or cfg.query_block) if self.mode == "folded" \
-            else cfg.query_block
+        self.qb = query_block(cfg, scorer.folded is not None)
         # static model buckets covering >= 99.9 % of the truth titles; rows
         # whose candidates exceed them go through the host stages
         L = cfg.max_characters
-        self._buckets = np.asarray([b for b in cfg.length_buckets if b < L] + [L])
-        self._w_buckets = np.asarray([b for b in (16, 32, 64) if b < L] + [L])
-        tl999 = int(np.quantile(matcher.truth.lengths, 0.999))
-        wl999 = int(np.quantile(np.maximum(self.rerank._wlen_max, 1), 0.999))
+        self._buckets = np.asarray(title_grid(cfg, L))
+        self._w_buckets = np.asarray(device_word_grid(L))
+        tl999 = int(np.quantile(truth_lengths, 0.999))
+        wl999 = int(np.quantile(np.maximum(rerank._wlen_max, 1), 0.999))
         self.tlr_default = self._bucket(min(tl999, L))
         self.wl_default = int(self._w_buckets[np.searchsorted(self._w_buckets, min(wl999, L))])
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._pool = None
-        self.capture_seconds: Dict[tuple, float] = {}
+        # each key's pinned host twins of its graph's input and output
+        self._host: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         LOGGER.info("[FusedServe] mode=%s qb=%d k=%d rerank bucket (%d, %d)",
                     self.mode, self.qb, self.k, self.tlr_default, self.wl_default)
 
     def _bucket(self, n: int) -> int:
         return int(self._buckets[np.searchsorted(self._buckets, n)])
 
-    # ---------------------------------------------------------- dispatch
-
     def request(self, queries, rows: np.ndarray):
-        """(query rows, static key, {segment: host array}) of one request of
-        at most one query block."""
+        """(query rows, graph key, {segment: host array, the query rows'
+        only}) of one request of at most one query block."""
         cfg = self.cfg
         if self.mode == "folded":
             plans = plan_id_blocks(queries, cfg, rows=rows)
         else:
-            plans = plan_query_blocks(queries, self.m.index, cfg, rows=rows)
+            plans = plan_query_blocks(queries, self.scorer.index, cfg, rows=rows)
         if len(plans) != 1:
             raise AssertionError("the one-dispatch path takes one query block")
         p = plans[0]
@@ -155,153 +135,72 @@ class FusedServe:
         else:
             self.retrieval.check_plan(p)
             arrays, u = {"union": p.union_ids, "ids": p.w_pos}, p.union_ids.shape[0]
-        qb, lq = arrays["ids"].shape
+        lq = arrays["ids"].shape[1]
         rws = p.query_rows
 
         # fuzzy tile: the length-delta prefilter bounds every considered
-        # candidate by |q|·(200−thr)/thr, so the query lengths fix it
+        # candidate, so the query lengths fix it
         L = cfg.max_characters
-        thr = int(cfg.levenshtein_ratio_threshold)
-        q_len = queries.lengths[rws].astype(np.int64)
-        need = int(np.minimum((q_len * (200 - thr) + thr - 1) // thr, L).max(initial=1))
-        longest = int(q_len.max(initial=1))
+        need = int(fuzzy_tile_bound(queries.lengths[rws], cfg).max(initial=1))
+        longest = int(queries.lengths[rws].max(initial=1))
         tlf = self._bucket(min(max(need, longest), L))
         # model tile: the static bucket, widened to hold the query
         tlr = self._bucket(min(max(self.tlr_default, longest), L))
         tlq = max(tlf, tlr)
-
-        def pad(x):
-            out = np.zeros((qb,) + x.shape[1:], x.dtype)
-            out[: len(rws)] = x
-            return out
-
         ts_all, ts_len_all = queries.encoded_token_sorted
         wo_all, wo_len_all = queries.encoded_wo
         arrays.update(
-            q_enc=pad(queries.encoded[rws][:, :tlq]), q_len=pad(queries.lengths[rws]),
-            q_ts=pad(ts_all[rws][:, :tlq]), q_ts_len=pad(np.minimum(ts_len_all[rws], tlq)),
-            q_wo=pad(wo_all[rws][:, :tlq]), q_wo_len=pad(np.minimum(wo_len_all[rws], tlq)),
+            q_enc=queries.encoded[rws][:, :tlq], q_len=queries.lengths[rws],
+            q_ts=ts_all[rws][:, :tlq], q_ts_len=np.minimum(ts_len_all[rws], tlq),
+            q_wo=wo_all[rws][:, :tlq], q_wo_len=np.minimum(wo_len_all[rws], tlq),
         )
-        return rws, (self.mode, u, lq, tlf, tlr, self.wl_default), arrays
+        return rws, ("FusedServe", self.mode, u, lq, tlf, tlr, self.wl_default), arrays
 
     def run(self, buf: torch.Tensor, key: tuple) -> torch.Tensor:
         """``fused_cascade`` on a request buffer u8 (the layout of
         ``_segments``): the packed result f32 (8·QB + QB·k,), the stats then
         the candidates' bits."""
-        _mode, u, lq, tlf, tlr, wl = key
+        _name, _mode, u, lq, tlf, tlr, wl = key
         segs, _ = _segments(u, self.qb, lq, max(tlf, tlr))
-        t = {}
-        for name, dt, shape, off in segs:
-            nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
-            t[name] = buf[off : off + nbytes].view(_TORCH_DTYPE[dt]).reshape(shape)
+        t = {name: buf[sl].view(_TORCH_DTYPE[dt]).reshape(shape) for name, dt, shape, sl in segs}
         stats, cand = fused_cascade(self.retrieval, self.fuzzy, self.rerank, t["ids"], t.get("union"),
                                     t["q_enc"], t["q_len"], t["q_ts"], t["q_ts_len"], t["q_wo"],
                                     t["q_wo_len"], k=self.k, tlf=tlf, tlr=tlr, wl=wl)
         return torch.cat([stats.reshape(-1), cand.reshape(-1).view(torch.float32)])
 
-    @staticmethod
-    def _pack(host: np.ndarray, segs, arrays) -> None:
-        for name, dt, shape, off in segs:
-            nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
-            host[off : off + nbytes].view(dt).reshape(shape)[...] = arrays[name]
-
-    def _capture(self, key: tuple, segs, nbytes: int, arrays) -> _Graph:
-        """Warm up, then capture the key's graph into the shared pool: a
-        ``doppel.capture`` span, whose seconds are ``capture_seconds[key]``."""
-        with timing.timed("doppel.capture", graph="FusedServe", rows=self.qb) as sp:
-            dev = self.device
-            host_in = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=True)
-            self._pack(host_in.numpy(), segs, arrays)
-            static_in = host_in.to(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.run(static_in, key)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-
-            def capture():
-                with torch.cuda.graph(graph, pool=self._pool):
-                    return self.run(static_in, key)
-
-            out, launches = jk.uncounted(capture)
-        FusedServe.captures += 1
-        self.capture_seconds[key] = sp.seconds
-        LOGGER.info("[FusedServe] captured %s in %.3f s", key, self.capture_seconds[key])
-        return _Graph(graph, static_in, out, host_in,
-                      torch.empty(out.shape, dtype=out.dtype, pin_memory=True), launches)
-
     def dispatch(self, queries, rows: np.ndarray, eager: bool = False):
         """One device program for at most one query block.  Returns (query
         rows, stats f32 (8, QB), candidates i32 (QB, k), the model tile tlr),
-        host arrays.  ``eager`` runs ``fused_cascade`` op by op on the card
-        too, as on the CPU (what a replay is held against)."""
+        host arrays.  Where the workers run graphs the key's graph is
+        captured at its first request (whose result is the warm-up's) and
+        replayed at every later one; ``eager``, or workers that run op by
+        op, run ``fused_cascade`` op by op (what a replay is held against)."""
         rws, key, arrays = self.request(queries, rows)
-        segs, nbytes = _segments(key[1], self.qb, key[2], max(key[3], key[4]))
-        if eager or self.device.type == "cpu":
-            buf = np.zeros(nbytes, np.uint8)
-            self._pack(buf, segs, arrays)
-            packed = self.run(torch.from_numpy(buf).to(self.device), key)
-            with timing.span("doppel.fused.wait"):
-                out = packed.cpu().numpy()
+        segs, nbytes = _segments(key[2], self.qb, key[3], max(key[4], key[5]))
+        if key not in self._host:
+            pin = self.device.type == "cuda"
+            self._host[key] = (torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin),
+                               torch.empty(self.qb * (8 + self.k), dtype=torch.float32, pin_memory=pin))
+        host_in, host_out = self._host[key]
+        for name, dt, shape, sl in segs:
+            seg, n = host_in.numpy()[sl].view(dt).reshape(shape), len(arrays[name])
+            seg[:n], seg[n:] = arrays[name], 0            # zeros past the request's rows
+        # a graph replays on the caller's stream, which every run of the
+        # shards joins (``to_first``) and every later one forks from: on an
+        # H100 shard 0's stream cost 0.1-0.25 ms more a request after an idle
+        # gap (its event waits)
+        workers = self.scorer.workers
+        if eager or not workers.graphed:
+            packed = self.run(host_in.to(self.device), key)
+        elif (0, key) in workers.graphs:
+            packed, = workers.replay(0, key, (host_in,))
         else:
-            g = self._graphs.get(key)
-            if g is None:
-                g = self._graphs[key] = self._capture(key, segs, nbytes, arrays)
-            else:
-                self._pack(g.host_in.numpy(), segs, arrays)
-            g.static_in.copy_(g.host_in, non_blocking=True)
-            with timing.span("doppel.replay", graph="FusedServe"):
-                g.graph.replay()
-            FusedServe.replays += 1
-            jk.count_replay(g.launches)
-            g.host_out.copy_(g.out, non_blocking=True)
-            with timing.span("doppel.fused.wait"):
+            workers.fork()
+            packed, = workers.capture(0, key, lambda buf: (self.run(buf, key),), (host_in,), rows=self.qb)
+        host_out.copy_(packed, non_blocking=True)
+        with timing.span("doppel.fused.wait"):
+            if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-            out = g.host_out.numpy().copy()
+        out = host_out.numpy().copy()
         qb = self.qb
-        return rws, out[: 8 * qb].reshape(8, qb), out[8 * qb :].view(np.int32).reshape(qb, self.k), key[4]
-
-    # ------------------------------------------------------------- decode
-
-    def match(self, queries, rem: np.ndarray, res, single: bool) -> None:
-        """Decide the rows ``rem`` (at most one query block) into ``res``.
-        Rows whose candidates exceed the static model bucket are decided
-        again by the host stages on the fetched candidates."""
-        with timing.timed("doppel.fused", rows=len(rem)) as sp:
-            rows, stats, cand, tlr = self.dispatch(queries, rem)
-            res.stage_seconds["retrieval"] = sp.seconds
-            fz_matched, fz_pos, _fz_ratio, md_cnt, md_pos, md_pred, probe_tl, probe_wl = stats
-            thr_p = self.cfg.prediction_probability_threshold
-            fallback = []
-            n_fz = n_md = 0
-            for j, qi in enumerate(rows):
-                if probe_tl[j] > tlr or probe_wl[j] > self.wl_default:
-                    fallback.append((j, qi))
-                elif fz_matched[j] > 0:
-                    self.m._record(res, qi, int(fz_pos[j]), 1.0, STAGE_FUZZY)
-                    n_fz += 1
-                elif single or (md_cnt[j] == 1 and md_pred[j] > thr_p):
-                    # a single title takes the first max whatever its value
-                    self.m._record(res, qi, int(md_pos[j]), float(md_pred[j]), STAGE_MODEL)
-                    n_md += 1
-            res.stage_counts["fuzzy"] = n_fz
-            res.stage_counts["model"] = n_md
-            sp.set(fallback_rows=len(fallback))
-            if fallback:
-                LOGGER.info("[FusedServe] %d rows exceed the (%d, %d) rerank bucket; classic host redo",
-                            len(fallback), tlr, self.wl_default)
-                with timing.span("doppel.fused.redo", rows=len(fallback)):
-                    js = np.asarray([j for j, _ in fallback])
-                    qs = np.asarray([qi for _, qi in fallback], dtype=np.int64)
-                    cand_sub = cand[js]
-                    self.m._stage_fuzzy(queries, qs, cand_sub, res)
-                    res.stage_counts["fuzzy"] += n_fz
-                    still = res.stage[qs] == STAGE_NONE
-                    if still.any():
-                        self.m._stage_model(queries, qs[still], cand_sub[still], res, single)
-                        res.stage_counts["model"] += n_md
-        res.stage_seconds["fuzzy"] = 0.0
-        res.stage_seconds["model"] = 0.0
+        return rws, out[: 8 * qb].reshape(8, qb), out[8 * qb :].view(np.int32).reshape(qb, self.k), key[5]

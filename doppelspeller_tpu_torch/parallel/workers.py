@@ -9,20 +9,23 @@ the host.  A single device is a mesh of one shard (``ops/jaccard.py``'s
 the caller's thread issues itself, on the shard's stream: with no other
 shard to overlap, a hand-off to a thread would only cost.  The
 title-sharded mesh (``parallel/sharded.py``) has a shard per entry.  So
-the port has one cache of CUDA graphs beside the one-dispatch path's
-(``ops/serve_fused.py``), and one op-by-op switch, ``use_graphs``.
+the port has one cache of CUDA graphs, the batch stages' and the
+one-dispatch path's (``ops/serve_fused.py``) alike, and one op-by-op
+switch, ``use_graphs``.
 
 On a card each shard keeps CUDA graphs, in a memory pool of its own.  A
-key runs op by op through the caller-level run (``run``: a predict, a
-retrieval, a run of rows) that first uses it, and is captured in a later
-run (``due``), so work that a process does once, a one-shot
-``generate-predictions`` or a training's retrieval, pays no capture; a
-capture runs while every worker is idle, after a device synchronize, and
-leaves the caching allocators alone (``torch.cuda.graph`` would empty
-them, and every later allocation would go back to the driver).  A
-graph's outputs are overwritten by the shard's next replay, so every
-caller copies them out on the shard's stream first.  A capture or replay
-that fails raises; nothing falls back to running op by op.
+batch stage's key runs op by op through the caller-level run (``run``: a
+predict, a retrieval, a run of rows) that first uses it, and is captured in
+a later run (``due``), so work that a process does once, a one-shot
+``generate-predictions`` or a training's retrieval, pays no capture; the
+one-dispatch path, whose keys recur request after request, captures at a
+key's first request.  A capture runs while every worker is idle, after a
+device synchronize, and leaves the caching allocators alone
+(``torch.cuda.graph`` would empty them, and every later allocation would be
+a fresh ``cudaMalloc``).  A graph's outputs are overwritten by the shard's next
+replay, so every caller copies them out on the shard's stream first.  A
+capture or replay that fails raises; nothing falls back to running op by
+op.
 
 ``row_parallel`` splits rows over the shards (``replicate`` gives each
 distinct device a copy of an engine): the fuzzy and model stages of
@@ -121,7 +124,8 @@ class Workers:
     The threads start at first use and end with ``close``.
 
     On a card each shard keeps CUDA graphs (``graphs``, keyed by (shard,
-    key), ``key[0]`` a name), in a memory pool of its own: ``due`` says
+    key), ``key[0]`` a name: ``topk``, ``FuzzyEngine``, ``RerankEngine``
+    or ``FusedServe``), in a memory pool of its own: ``due`` says
     whether a key not captured yet is captured now (a run before this one
     used it) or run op by op, ``capture`` makes one and ``replay`` runs
     it; ``captures`` and ``replays`` count them by name and shard, and
@@ -167,12 +171,14 @@ class Workers:
         return self._first_run.setdefault((i, key), self._runs) < self._runs
 
     def capture(self, i: int, key: tuple, fn: Callable[..., Tuple[torch.Tensor, ...]],
-                inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+                inputs: Sequence[torch.Tensor], rows: Optional[int] = None
+                ) -> Tuple[torch.Tensor, ...]:
         """Called with every worker idle (after ``fork``): on shard i's
         thread, ``fn`` runs op by op on copies of ``inputs`` on its device
         (the warm-up; its outputs are returned), then, after a device
         synchronize, is captured as the graph (i, key), those copies its
-        static inputs."""
+        static inputs; ``rows`` (the first input's by default) is the
+        ``doppel.capture`` span's count."""
         def job(d, _idx):
             with self.on(i) as stream:
                 static = tuple(x.to(d, copy=True) for x in inputs)
@@ -195,28 +201,31 @@ class Workers:
                 self.captures.setdefault(key[0], [0] * self.mesh.size)[i] += 1
             return {i: out}
 
-        with timing.timed("doppel.capture", graph=key[0], rows=int(inputs[0].shape[0])) as sp:
+        rows = int(inputs[0].shape[0]) if rows is None else rows
+        with timing.timed("doppel.capture", graph=key[0], rows=rows) as sp:
             out = self.collect(self.submit(job, [i]))[i]
         self.capture_seconds[key[0]] = self.capture_seconds.get(key[0], 0.0) + sp.seconds
         return out
 
     def replay(self, i: int, key: tuple, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        """On shard i's thread, under ``on(i)``: ``inputs`` copied into the
-        leading rows of graph (i, key)'s static inputs (the rows past them
-        keep earlier valid rows), one replay.  Returns its static outputs,
-        valid until the shard's next replay."""
+        """On shard i's thread, under ``on(i)`` (a mesh of one: on the
+        caller's stream too, as the one-dispatch path replays): ``inputs``
+        copied into the leading rows of graph (i, key)'s static inputs (the
+        rows past them keep earlier valid rows; a pinned host input, without
+        blocking), one replay.  Returns its static outputs, valid until the
+        shard's next replay."""
         g = self.graphs[i, key]
         for dst, x in zip(g.static_in, inputs):
-            dst[: x.shape[0]].copy_(x)
+            dst[: x.shape[0]].copy_(x, non_blocking=True)
         with timing.span("doppel.replay", graph=key[0]):
             g.graph.replay()
         jk.count_replay(g.launches)
         self.replays.setdefault(key[0], [0] * self.mesh.size)[i] += 1
         return g.out
 
-    def drop(self, name: str) -> None:
-        """Forget the graphs whose key is named ``name``."""
-        for k in [k for k in self.graphs if k[1][0] == name]:
+    def drop(self, *names: str) -> None:
+        """Forget the graphs whose key is named one of ``names``."""
+        for k in [k for k in self.graphs if k[1][0] in names]:
             del self.graphs[k]
 
     @contextlib.contextmanager
@@ -248,7 +257,7 @@ class Workers:
         first device and on its own."""
         for d, s in zip(self.mesh.devices, self.streams):
             if s is not None:
-                if self.first.type == "cuda":
+                if self.first.type == "cuda" and self.first != d:
                     s.wait_stream(torch.cuda.current_stream(self.first))
                 s.wait_stream(torch.cuda.current_stream(d))
 

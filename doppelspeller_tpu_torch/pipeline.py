@@ -23,10 +23,10 @@ CPU, or on a mesh (``parallel/sharded.py``).  Stages:
    on how it is batched.
 
 A batch of at most one query block (a single title among them) takes the
-one-dispatch path instead (``ops/serve_fused.py``): the three stages as one
-device program, replayed as a CUDA graph on the card, as the JAX package's
-``predict`` takes its fused path; ``serve_fused="off"`` and
-``cascade_impl="host"`` leave it.  Rows it cannot decide at its static
+one-dispatch path instead (``_stage_fused``): the three stages as one
+device program (``ops/serve_fused.py``, a graph on the scorer's workers),
+as the JAX package's ``predict`` takes its fused path; ``serve_fused="off"``
+and ``cascade_impl="host"`` leave it.  Rows it cannot decide at its static
 model bucket, and rows over a capped fuzzy tile (``fuzzy_tile_cap``), go
 through the reference's host stages (``_stage_fuzzy``, ``_stage_model``),
 which index the truth arrays with numpy as the reference does.
@@ -77,6 +77,8 @@ from doppelspeller_tpu_torch.ops.fuzzy import FuzzyEngine
 from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
 from doppelspeller_tpu_torch.ops.ngram_index import TruthIndex, build_truth_index, checkpoint_holds
 from doppelspeller_tpu_torch.ops.rerank import RerankEngine
+from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+from doppelspeller_tpu_torch.ops.tiles import device_word_grid, fuzzy_tile_bound, query_block, title_grid
 from doppelspeller_tpu_torch.parallel.sharded import ShardedJaccardScorer, build_sharded_index
 from doppelspeller_tpu_torch.parallel.workers import Mesh, replicate, row_parallel
 from doppelspeller_tpu_torch.utils import timing
@@ -295,7 +297,7 @@ class Matcher:
         self.model = model
         self._rerank: Optional[RerankEngine] = None
         self._rerank_copies = None
-        self.scorer.workers.drop(RerankEngine.__name__)      # graphs of the old model
+        self.scorer.workers.drop(RerankEngine.__name__, FusedServe.__name__)   # the old model's graphs
         self._fused = None            # the one-dispatch path, over this model
 
     @property
@@ -321,16 +323,16 @@ class Matcher:
         cfg = self.cfg
         if cfg.serve_fused == "off" or impl == "host" or self.mesh is not None:
             return False
-        qb = (cfg.fold_query_block or cfg.query_block) if self.scorer.folded is not None \
-            else cfg.query_block
-        return len(rem) <= qb and self.index.num_titles >= cfg.top_n_predicting
+        return (len(rem) <= query_block(cfg, self.scorer.folded is not None)
+                and self.index.num_titles >= cfg.top_n_predicting)
 
-    def _fused_engine(self):
-        """The one-dispatch path over this matcher's engines, built at first use."""
+    def _fused_engine(self) -> FusedServe:
+        """The one-dispatch path's program over this matcher's engines and
+        ``cfg``, built at first use; the graphs of one built before are
+        dropped, as they ran its settings."""
         if self._fused is None:
-            from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
-
-            self._fused = FusedServe(self)
+            self.scorer.workers.drop(FusedServe.__name__)
+            self._fused = FusedServe(self.cfg, self.scorer, self.fuzzy, self.rerank, self.truth.lengths)
         return self._fused
 
     # ------------------------------------------------------------- stages
@@ -431,22 +433,18 @@ class Matcher:
         cfg = self.cfg
         dev = self.device
         k = cfg.top_n_predicting
-        buckets = [b for b in cfg.length_buckets if b < cfg.max_characters]
-        buckets.append(cfg.max_characters)
+        buckets = title_grid(cfg, cfg.max_characters)
         buckets_arr = np.asarray(buckets)
         with timing.span("doppel.plan", rows=len(rem)):
             # a fuzzy-considered candidate satisfies the length-delta
-            # prefilter, so |t| <= ceil(|q|·(200−thr)/thr): the fuzzy tile is
-            # derived from the threshold and no considered pair can overflow
-            # it, unless fuzzy_tile_cap caps the tile at the widest bucket
-            # within it; a row with a considered pair longer than that tile
-            # is flagged and decided again by the host stage on its candidates
-            thr_i = int(cfg.levenshtein_ratio_threshold)
+            # prefilter, so the fuzzy tile is derived from the threshold
+            # (``fuzzy_tile_bound``) and no considered pair can overflow it,
+            # unless fuzzy_tile_cap caps the tile at the widest bucket within
+            # it; a row with a considered pair longer than that tile is
+            # flagged and decided again by the host stage on its candidates
             q_len_all = queries.lengths.astype(np.int64)
-            need_all = np.minimum((q_len_all * (200 - thr_i) + thr_i - 1) // thr_i,
-                                  cfg.max_characters)
             titles = np.array(queries.transformed, dtype=object)
-            fzb = np.searchsorted(buckets_arr, need_all[rem])
+            fzb = np.searchsorted(buckets_arr, fuzzy_tile_bound(q_len_all[rem], cfg))
             order = np.lexsort((titles[rem], fzb))
             rem = rem[order]
             fzb = fzb[order]
@@ -510,8 +508,7 @@ class Matcher:
             gq = rem[todo]
             tl_need = np.maximum(q_len_all[gq], probe_tl[todo])
             wl_need = np.maximum(probe_wl[todo], 1)
-            w_buckets = [b for b in (16, 32, 64) if b < cfg.max_characters]
-            w_buckets.append(cfg.max_characters)
+            w_buckets = device_word_grid(cfg.max_characters)
             w_arr = np.asarray(w_buckets)
             tbi = np.searchsorted(buckets_arr, np.minimum(tl_need, cfg.max_characters))
             wbi = np.searchsorted(w_arr, np.minimum(wl_need, cfg.max_characters))
@@ -608,6 +605,43 @@ class Matcher:
             res.stage_counts["model"] = hits
             sp.set(hits=hits)
 
+    def _stage_fused(self, queries: TitleSet, rem: np.ndarray, res: PredictionResult,
+                     single: bool) -> None:
+        """The rows ``rem`` (at most one query block) through one device
+        program (``FusedServe.dispatch``), decided here; rows past its static
+        model bucket go to the host stages on the fetched candidates.  The
+        ``doppel.fused`` span's seconds are the retrieval stage's."""
+        fused = self._fused_engine()
+        with timing.timed("doppel.fused", rows=len(rem)) as sp:
+            rows, stats, cand, tlr = fused.dispatch(queries, rem)
+            res.stage_seconds["retrieval"] = sp.seconds
+            fz_matched, fz_pos, _ratio, md_cnt, md_pos, md_pred, probe_tl, probe_wl = stats[:, : len(rows)]
+            redo = (probe_tl > tlr) | (probe_wl > fused.wl_default)
+            fz = ~redo & (fz_matched > 0)
+            # a single title takes the first max whatever its value
+            thr_p = self.cfg.prediction_probability_threshold
+            md = ~redo & ~fz & (single | ((md_cnt == 1) & (md_pred > thr_p)))
+            for j in np.flatnonzero(fz):
+                self._record(res, rows[j], int(fz_pos[j]), 1.0, STAGE_FUZZY)
+            for j in np.flatnonzero(md):
+                self._record(res, rows[j], int(md_pos[j]), float(md_pred[j]), STAGE_MODEL)
+            n_fz, n_md = int(fz.sum()), int(md.sum())
+            res.stage_counts.update(fuzzy=n_fz, model=n_md)
+            js = np.flatnonzero(redo)
+            sp.set(fallback_rows=len(js))
+            if len(js):
+                LOGGER.info("[FusedServe] %d rows exceed the (%d, %d) rerank bucket; classic host redo",
+                            len(js), tlr, fused.wl_default)
+                with timing.span("doppel.fused.redo", rows=len(js)):
+                    qs, cand_sub = rows[js].astype(np.int64), cand[js]
+                    self._stage_fuzzy(queries, qs, cand_sub, res)
+                    res.stage_counts["fuzzy"] += n_fz
+                    still = res.stage[qs] == STAGE_NONE
+                    if still.any():
+                        self._stage_model(queries, qs[still], cand_sub[still], res, single)
+                        res.stage_counts["model"] += n_md
+        res.stage_seconds.update(fuzzy=0.0, model=0.0)
+
     def _raise_on_padding(self, cand: torch.Tensor, order: np.ndarray) -> None:
         """The reference's host stages index the truth arrays with numpy,
         which raises on a padding candidate (a position past the truth
@@ -655,7 +689,7 @@ class Matcher:
                 root.set(path="exact")
             elif not waves and self._use_fused(rem, impl):
                 root.set(path="fused")
-                self._fused_engine().match(queries, rem, res, single)
+                self._stage_fused(queries, rem, res, single)
             else:
                 root.set(path="waves" if waves else "staged")
                 with self.scorer.workers.run():                # one run of the graphs' rule

@@ -643,30 +643,30 @@ def _bits(x):
 
 @pytest.mark.parametrize("mode", ["exact", "folded"])
 def test_fused_replay_equals_eager(serve_world, mode):
-    """A request's graph replay (captured at its first request) equals the
-    same request's ``fused_cascade`` run op by op, bit for bit, on both
-    engines; a second request of the same key replays without a capture
-    and equals its own op-by-op run; the replays count their launches."""
-    from doppelspeller_tpu_torch.ops.serve_fused import FusedServe
+    """A request's graph, captured on the scorer's workers at its first
+    request (which answers with the capture's op-by-op warm-up), and its
+    replay at a second request of the same key each equal the request's
+    ``fused_cascade`` run op by op, bit for bit, on both engines; the
+    warm-up and the replay each count one launch of A."""
     from doppelspeller_tpu_torch.utils.io import TitleSet
 
     _cfg, _truth, queries = serve_world
-    fs = _serve_matcher(serve_world, mode)._fused_engine()
+    m = _serve_matcher(serve_world, mode)
+    fs, w = m._fused_engine(), m.scorer.workers
     assert fs.mode == mode and fs.qb == 8
     blocks = [TitleSet.from_titles(queries.titles[s : s + 8], config=fs.cfg) for s in range(0, 256, 8)]
     keys = [fs.request(b, np.arange(8))[1] for b in blocks]
     first = blocks[0]
     again = next(b for b, k in zip(blocks[1:], keys[1:]) if k == keys[0])
     for n, block in enumerate((first, again)):
-        caps, reps, a = FusedServe.captures, FusedServe.replays, jk.score_window_select.launches
+        a = jk.score_window_select.launches
         got = fs.dispatch(block, np.arange(8))
-        assert (FusedServe.captures - caps, FusedServe.replays - reps) == (1 - n, 1)
-        # a replay launches A once; the first request also runs it op by op
-        assert jk.score_window_select.launches - a == 2 - n
+        assert (w.captures["FusedServe"], w.replays.get("FusedServe", [0])) == ([1], [n])
+        assert jk.score_window_select.launches - a == 1
         ref = fs.dispatch(block, np.arange(8), eager=True)
         assert np.array_equal(got[0], ref[0])
         assert np.array_equal(_bits(got[1]), _bits(ref[1])) and np.array_equal(got[2], ref[2])
-    assert len(fs._graphs) == 1
+    assert [key for _, key in w.graphs if key[0] == "FusedServe"] == [keys[0]]
 
 
 def test_fused_capture_failure_raises(serve_world, monkeypatch):
@@ -688,7 +688,7 @@ def test_fused_capture_failure_raises(serve_world, monkeypatch):
     monkeypatch.setattr(serve_fused, "fused_cascade", syncing)
     with pytest.raises(RuntimeError):
         matcher.predict(TitleSet.from_titles(queries.titles[:3], config=matcher.cfg))
-    assert not matcher._fused_engine()._graphs
+    assert not [key for _, key in matcher.scorer.workers.graphs if key[0] == "FusedServe"]
 
 
 # ------------------------------------------------------------------- mesh

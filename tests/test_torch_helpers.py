@@ -65,11 +65,14 @@ def union_inputs(seed, qb, U, V, ntp, nt, integer=False):
 
 class EagerGraphs(Workers):
     """Workers whose "graphs" are the step run again on its static inputs:
-    the graphed paths' padding, keys, replays and cuts on the CPU."""
+    the graphed paths' padding, keys, replays and cuts on the CPU
+    (``use_graphs = False`` runs op by op, as on a card)."""
 
-    graphed = True
+    @property
+    def graphed(self):
+        return self.use_graphs
 
-    def capture(self, i, key, fn, inputs):
+    def capture(self, i, key, fn, inputs, rows=None):
         static = tuple(x.clone() for x in inputs)
         self.graphs[i, key] = (fn, static)
         self.captures.setdefault(key[0], [0] * self.mesh.size)[i] += 1
