@@ -622,6 +622,63 @@ def check_kernel_f(torch, lev):
     return out
 
 
+def kernel_g_inputs(torch, qb=128, nw=32_768, lq=64, ltw=64, nt=500_000):
+    """Kernel G's inputs at the folded 500k block: window maxima in [0, 1)
+    (-1 past nt) over 524,288 titles, a window's title in its tile, ids
+    from a 400-trigram vocabulary (V and weight 0 past each query's
+    trigrams), trigram lists of the same vocabulary up to a random length."""
+    from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE as V
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dev = "cuda"
+    ntp = 16 * nw
+    wmax = torch.rand((qb, nw), device=dev, generator=g)
+    wmax[:, 16 * torch.arange(nw, device=dev) >= nt] = -1.0
+    warg = (16 * torch.arange(nw, device=dev)[None, :]
+            + torch.randint(0, 16, (qb, nw), device=dev, generator=g)).to(torch.int32)
+    ids = torch.randint(0, 400, (qb, lq), device=dev, generator=g)
+    n_real = torch.randint(1, lq + 1, (qb, 1), device=dev, generator=g)
+    ids = torch.where(torch.arange(lq, device=dev)[None, :] < n_real, ids, V)
+    w_val = torch.where(ids < V, torch.rand((qb, lq), device=dev, generator=g) * 8 + 0.5, 0.0)
+    tl = torch.randint(0, 400, (ntp, ltw), device=dev, generator=g, dtype=torch.int32)
+    n_tl = torch.randint(1, ltw + 1, (ntp, 1), device=dev, generator=g)
+    tl = torch.where(torch.arange(ltw, device=dev)[None, :] < n_tl, tl, V)
+    tl[nt:] = V
+    sums = torch.rand(ntp, device=dev, generator=g) * 40 + 10
+    sums[nt:] = 0.0
+    return wmax, warg, tl.contiguous(), sums, ids, w_val, w_val.sum(dim=1)
+
+
+def check_kernel_g(torch, fold, kprime=128, k=100):
+    """Kernel G against ``select_rescore_plain`` at the folded 500k block
+    (QB 128, 32,768 windows, k' 128, k 100, LQ 64, Ltw 64): equal bit for
+    bit; its time by CUDA events, the plain version's, and the bound of
+    the bytes it needs (the maxima once, the k' candidates' lists, titles
+    and sums, the ids, weights and bounds, the output)."""
+    args = kernel_g_inputs(torch)
+    wmax, warg, tl, sums, ids, w_val, maxint = args
+    nt = 500_000
+    got = fold.select_rescore(*args, nt, kprime, k)
+    want = fold.select_rescore_plain(*args, nt, kprime, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        raise AssertionError("kernel G differs from select_rescore_plain at the 500k block")
+    ms = alternating_ms({"G": lambda: fold.select_rescore(*args, nt, kprime, k)}, calls=10)["G"]
+    plain = cuda_ms(lambda: fold.select_rescore_plain(*args, nt, kprime, k), reps=3, calls=1)
+    qb, nw = wmax.shape
+    nbytes = (wmax.numel() * 4 + qb * kprime * (tl.shape[1] * 4 + 4 + 4)
+              + ids.numel() * ids.element_size() + w_val.numel() * 4 + maxint.numel() * 4
+              + qb * k * 8)
+    bound_ms, bound_by = bound(0.0, 1.0, nbytes)
+    print(f"# kernel G QB={qb}, {nw} windows, k'={kprime}, k={k}, LQ={ids.shape[1]}, "
+          f"Ltw={tl.shape[1]}: equal bit for bit; {ms:.4f} ms, plain {plain:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of it",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "max_abs_err": 0.0, "library_ms": None}
+
+
 class Spy:
     """Stands in for the function ``name`` of ``module`` and keeps every
     call's (args, kwargs, result), by reference.  Attributes go through to
@@ -1030,6 +1087,18 @@ def check_calls(torch, jk, fk, calls_a, calls_b, where):
           f"scoring on all {len(calls_a)} calls (U: calls {json.dumps(dict(sorted(unions.items())))}), "
           f"titles equal on {n_untied} untied windows", flush=True)
     return shapes_b, unions, largest
+
+
+def check_calls_g(torch, fold, calls, where):
+    """Kernel G against ``select_rescore_plain`` on every call a path made,
+    bit for bit (none on the exact engine)."""
+    for args, _, (vk, pk) in calls:
+        vp, pp = fold.select_rescore_plain(*args)
+        if not (torch.equal(vk.view(torch.int32), vp.view(torch.int32)) and torch.equal(pk, pp)):
+            raise AssertionError(f"kernel G differed from its plain version {where} at "
+                                 f"{tuple(args[0].shape)}, LQ={args[4].shape[1]}")
+    print(f"# {where}: kernel G equal to its plain version bit for bit on all {len(calls)} calls",
+          flush=True)
 
 
 def check_train_kernels(torch, jk, fk, calls_a, calls_b):
@@ -1602,11 +1671,12 @@ def single_graphs_path(torch, jk, fk, counters, smi, model, worlds):
                                                     torch.cuda.max_memory_reserved() / 1e9)
 
         with Spy(jk, "score_window_select") as spy_a, Spy(fold, "score_window_select") as spy_f, \
-                Spy(features, "window_best") as spy_b:
+                Spy(features, "window_best") as spy_b, Spy(fold, "select_rescore") as spy_g:
             ref, lo, _, _ = predict(False)
         check_calls(torch, jk, fk, spy_a.calls + spy_f.calls, spy_b.calls,
                     f"single_graphs {label} op-by-op predict")
-        del spy_a, spy_f, spy_b
+        check_calls_g(torch, fold, spy_g.calls, f"single_graphs {label} op-by-op predict")
+        del spy_a, spy_f, spy_b, spy_g
         predict(True)                  # set_model dropped the model stage's graphs: captures
         topk_eager = None
         for graphs in (False, True):
@@ -2379,6 +2449,7 @@ def main() -> int:
         return time_cli(torch, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     from doppelspeller_tpu_torch import _build
     from doppelspeller_tpu_torch.ops import features_kernels as fk
+    from doppelspeller_tpu_torch.ops import fold
     from doppelspeller_tpu_torch.ops import jaccard_kernels as jk
     from doppelspeller_tpu_torch.ops import levenshtein as lev
     phase("device", t0)
@@ -2401,6 +2472,10 @@ def main() -> int:
     t = time.time()
     kf = check_kernel_f(torch, lev)
     phase("kernel_f", t)
+    t = time.time()
+    kg = check_kernel_g(torch, fold)
+    torch.cuda.empty_cache()
+    phase("kernel_g", t)
     t = time.time()
     d = union_inputs(torch)
     kc = check_kernel_c(torch, jk, d)
@@ -2427,7 +2502,8 @@ def main() -> int:
     # A that read the union's rows through their ids
     counters = {name: (fn, "launches") for name, fn in
                 (("A", jk.score_window_select), ("B", fk.window_best), ("C", jk.gather_rows),
-                 ("D", jk.score_full), ("E", jk.jaccard_topk_v1), ("F", lev.lcs))}
+                 ("D", jk.score_full), ("E", jk.jaccard_topk_v1), ("F", lev.lcs),
+                 ("G", fold.select_rescore))}
     counters["A gathering"] = (jk.score_window_select, "gathered")
     # CUDA graphs of the one-dispatch path, captured and replayed
     from doppelspeller_tpu_torch.parallel.workers import Workers
@@ -2473,7 +2549,8 @@ def main() -> int:
     slab = Spy(features, "window_best")
     with Spy(lev, "lcs_plain") as plain_lcs:
         folded, res, la, first_f = run_main_path(torch, Matcher, cfg, truth, queries, actual, model,
-                                                 counters, ("A", "B", "F"), "folded", untimed=slab)
+                                                 counters, ("A", "B", "F", "G"), "folded",
+                                                 untimed=slab)
     if plain_lcs.calls:
         raise AssertionError(f"the folded main path called lcs_plain {len(plain_lcs.calls)} times")
     if folded.scorer.folded is None or any(la[k] for k in ("C", "D", "E", "A gathering")):
@@ -2520,10 +2597,10 @@ def main() -> int:
     phase("construction", t)
     exact, res_x, lx, first_x = run_main_path(torch, Matcher, cfg_x, truth_x, queries_x, actual_x,
                                               model, counters, ("A", "B", "F"), "exact")
-    if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"]
+    if (exact.scorer.exact is None or lx["C"] or lx["D"] or lx["E"] or lx["G"]
             or lx["A gathering"] != lx["A"]):
         raise AssertionError(f"the 150k default config did not take exact retrieval with A "
-                             f"gathering in every launch and no launch of C: {lx}")
+                             f"gathering in every launch and no launch of C or G: {lx}")
     unions = dict(sorted(exact.scorer.exact.union_sizes.items()))
     print(f"# exact union buckets in the timed predict (U: blocks): {json.dumps(unions)}", flush=True)
     t = time.time()
@@ -2692,6 +2769,12 @@ def main() -> int:
               f"folded main path (500k) and the mesh phase (launches: both); exact main path (150k) "
               f"launched it {lx['F']} times", plus(la), kf,
               launches_by_path={"folded": la["F"], "exact": lx["F"]}, shapes=kf["shapes"]),
+        entry("select_rescore", "G", "fold_rescore.cu",
+              "fold.py's select and _rescore_exact (XLA, no Pallas kernel)",
+              f"folded main path (500k) and the mesh phase (launches: both), one a block; exact "
+              f"main path (150k) launched it {lx['G']} times", plus(la), kg,
+              launches_by_path={"folded": la["G"], "exact": lx["G"]},
+              share_of_bound=kg["share_of_bound"]),
         # C's function runs inside A's loads (exact main path) and D's (oracle
         # anchor) since the gather was fused; its own kernel, timed here
         # beside index_select, is launched by no path of Matcher.predict, and

@@ -43,6 +43,7 @@ _SIGNATURES = {
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P]),
     "doppel_score_sparse_topk": ("score_sparse_topk.cu",
                                  [_P] * 10 + [_I, _I, _I, _L, _I, _I, _I, _I, _P]),
+    "doppel_select_rescore": ("fold_rescore.cu", [_P] * 9 + [_I] * 7 + [_P]),
 }
 
 _LIB: Optional[SimpleNamespace] = None

@@ -6,7 +6,9 @@ folded into ``C`` df-balanced buckets per hash; the folded occupancy matrices
 min over hashes of each hash's upper bound of the IDF intersection) runs in
 kernel A (``ops/jaccard_kernels.py``).  The coarse top-``rescore_depth``
 candidates of every query are then rescored exactly against the per-title
-trigram lists ``TL[ntp, Ltw]``.
+trigram lists ``TL[ntp, Ltw]``, and their top-k kept: on a card in kernel G
+(``select_rescore``, ``csrc/fold_rescore.cu``, one launch a block), on the
+CPU in its plain version (``select_rescore_plain``).
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from doppelspeller_tpu_torch import _build
 from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE, Config
 from doppelspeller_tpu_torch.device import resolve_device
 from doppelspeller_tpu_torch.ops.index_device import build_shard, ids_width
-from doppelspeller_tpu_torch.ops.jaccard_kernels import score_window_select, select_topk_windowed
+from doppelspeller_tpu_torch.ops.jaccard_kernels import (check_launch, score_window_select,
+                                                         select_topk_windowed)
 from doppelspeller_tpu_torch.ops.tiles import query_block, trigram_block
 from doppelspeller_tpu_torch.utils.io import TitleSet
 
@@ -155,14 +159,24 @@ def coarse_weights(ids: torch.Tensor, idf_ext: torch.Tensor, fold_ext: torch.Ten
     return torch.cat(parts, dim=1), w_val
 
 
-def rescore_exact(tl_mat: torch.Tensor, sums: torch.Tensor, ids: torch.Tensor,
-                  w_val: torch.Tensor, maxint: torch.Tensor, pos_c: torch.Tensor,
-                  nt: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact IDF-weighted Jaccard of the coarse candidates ``pos_c`` (QB, k')
-    and their top-k (ties to the lower coarse rank).
+def select_rescore_plain(wmax: torch.Tensor, warg: torch.Tensor, tl_mat: torch.Tensor,
+                         sums: torch.Tensor, ids: torch.Tensor, w_val: torch.Tensor,
+                         maxint: torch.Tensor, nt: int, kprime: int,
+                         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel G (``select_rescore``'s CPU route).
+
+    The coarse top-k' of the window maxima ``wmax`` f32 (QB, NW), ties to
+    the lower window (``lax.top_k``'s order), stand for the titles
+    ``warg`` i32 (QB, NW) of their windows; each is rescored by the exact
+    IDF-weighted Jaccard against the trigram lists ``tl_mat`` (ntp, Ltw),
+    and the top-k of those scores (ties to the lower coarse rank) are
+    returned: (scores f32 (QB, k), title positions i32 (QB, k)).
 
     Numerator: Σ_l w_val[q, l] · [ids[q, l] ∈ TL[pos]], accumulated over l in
-    ascending order as the reference does."""
+    ascending order as the reference does; positions outside [0, nt) score
+    -1."""
+    _, order = torch.sort(wmax, dim=1, descending=True, stable=True)
+    pos_c = torch.gather(warg, 1, order[:, :kprime])
     safe = pos_c.clamp(min=0).to(torch.int64)
     tlg = tl_mat[safe]                                       # (QB, k', Ltw)
     c = torch.zeros(pos_c.shape, dtype=torch.float32, device=pos_c.device)
@@ -176,6 +190,75 @@ def rescore_exact(tl_mat: torch.Tensor, sums: torch.Tensor, ids: torch.Tensor,
     vals, order = torch.sort(jacc, dim=1, descending=True, stable=True)
     order = order[:, :k]
     return vals[:, :k], torch.gather(pos_c, 1, order)
+
+
+# kernel G: the most candidates and query slots it takes, and the bytes of
+# the candidate rows it holds on chip at once
+_G_MAX_KPRIME, _G_MAX_SLOTS, _G_ROW_BYTES = 1024, 256, 64 * 1024
+
+
+def select_rescore(wmax: torch.Tensor, warg: torch.Tensor, tl_mat: torch.Tensor, sums: torch.Tensor,
+                   ids: torch.Tensor, w_val: torch.Tensor, maxint: torch.Tensor, nt: int,
+                   kprime: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded engine's select and exact rescore after kernel A:
+    ``select_rescore_plain``'s results, bit for bit.
+
+    wmax f32 and warg i32 (QB, NW) are kernel A's window maxima and their
+    titles; tl_mat i32 (ntp, Ltw) the trigram lists and sums f32 (ntp,);
+    ids int64 and w_val f32 (QB, LQ) the block's trigram ids and weights,
+    maxint f32 (QB,).  Returns (scores f32, positions i32), each (QB,
+    min(k, k', NW)).  CPU tensors take the plain version; CUDA tensors
+    launch kernel G (``csrc/fold_rescore.cu``) on the current stream, which
+    takes k' ≤ 1,024, LQ ≤ 256, NW and Ltw multiples of 4, Ltw ≤ 16,384,
+    nt ≤ ntp and finite weights; any other input raises."""
+    QB, NW = wmax.shape if wmax.dim() == 2 else (-1, -1)
+    LQ = ids.shape[1] if ids.dim() == 2 else -1
+    if (wmax.dtype != torch.float32 or warg.dtype != torch.int32 or tl_mat.dtype != torch.int32
+            or sums.dtype != torch.float32 or w_val.dtype != torch.float32
+            or maxint.dtype != torch.float32 or ids.dtype != torch.int64):
+        raise TypeError("kernel G takes f32 maxima, sums, weights and bounds, i32 titles and "
+                        "trigram lists, and int64 ids")
+    if (QB < 0 or LQ < 0 or warg.shape != (QB, NW) or tl_mat.dim() != 2
+            or sums.shape != (tl_mat.shape[0],) or ids.shape[0] != QB or w_val.shape != (QB, LQ)
+            or maxint.shape != (QB,)):
+        raise ValueError(f"shape mismatch: wmax {tuple(wmax.shape)}, warg {tuple(warg.shape)}, "
+                         f"tl {tuple(tl_mat.shape)}, sums {tuple(sums.shape)}, ids "
+                         f"{tuple(ids.shape)}, w_val {tuple(w_val.shape)}, "
+                         f"maxint {tuple(maxint.shape)}")
+    dev = wmax.device
+    if any(t.device != dev for t in (warg, tl_mat, sums, ids, w_val, maxint)):
+        raise ValueError("kernel G inputs must be on one device")
+    if dev.type == "cpu":
+        return select_rescore_plain(wmax, warg, tl_mat, sums, ids, w_val, maxint, nt, kprime, k)
+    if dev.type != "cuda":
+        raise RuntimeError(f"kernel G runs on CUDA tensors, not {dev}")
+    ntp, ltw = tl_mat.shape
+    kp = min(kprime, NW)
+    kk = min(k, kp)
+    if (kk < 1 or kp > _G_MAX_KPRIME or LQ > _G_MAX_SLOTS or NW % 4 or ltw % 4
+            or not 4 <= ltw * 4 <= _G_ROW_BYTES or not 0 <= nt <= ntp):
+        raise ValueError(f"kernel G takes 1 <= k <= k' <= {_G_MAX_KPRIME}, LQ <= {_G_MAX_SLOTS}, "
+                         f"window and list widths of multiples of 4 (lists of at most "
+                         f"{_G_ROW_BYTES // 4}) and nt <= titles, got k={k}, k'={kprime}, "
+                         f"LQ={LQ}, NW={NW}, Ltw={ltw}, nt={nt}, {ntp} titles")
+    check_launch("kernel G", wmax, warg, tl_mat, sums, ids, w_val, maxint)
+    vals = torch.empty((QB, kk), dtype=torch.float32, device=dev)
+    pos = torch.empty((QB, kk), dtype=torch.int32, device=dev)
+    if QB == 0:
+        return vals, pos
+    with torch.cuda.device(dev):          # the launch goes to the tensors' card
+        rc = _build.lib().doppel_select_rescore(
+            wmax.data_ptr(), warg.data_ptr(), ids.data_ptr(), w_val.data_ptr(), maxint.data_ptr(),
+            tl_mat.data_ptr(), sums.data_ptr(), vals.data_ptr(), pos.data_ptr(), QB, NW, LQ, ltw,
+            int(nt), kp, kk,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "doppel_select_rescore")
+    _build.count(select_rescore)
+    return vals, pos
+
+
+select_rescore.launches = 0
 
 
 class FoldedEngine(nn.Module):
@@ -224,8 +307,7 @@ class FoldedEngine(nn.Module):
             self.mc, wfold, self.sums, maxint, self.nt,
             tb=self.tb, W=self.W, folds=self.folds, score_dtype=self.cfg.score_dtype,
         )
-        kprime = max(self.kprime, k) if self.kprime > 0 else k
-        vals_c, pos_c = select_topk_windowed(wmax, warg, kprime)
         if self.kprime <= 0:
-            return vals_c[:, :k], pos_c[:, :k]
-        return rescore_exact(self.tl, self.sums, ids, w_val, maxint, pos_c, self.nt, k)
+            return select_topk_windowed(wmax, warg, k)
+        return select_rescore(wmax, warg, self.tl, self.sums, ids, w_val, maxint, self.nt,
+                              max(self.kprime, k), k)

@@ -113,7 +113,7 @@ def _check_score_inputs(U: int, nbytes: int, rows_u8, w, sums, maxint, folds: in
                          f"sums {tuple(sums.shape)}, maxint {tuple(maxint.shape)}")
 
 
-def _check_launch(name: str, *tensors: torch.Tensor) -> torch.device:
+def check_launch(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name} runs on CUDA tensors, not {dev}")
@@ -261,7 +261,7 @@ def score_window_select(
         return wmax, warg
     img = kernel_a_weights(w, folds, score_dtype)
     ids32 = None if union_ids is None else union_ids.to(torch.int32).contiguous()
-    _check_launch("kernel A", rows_u8, img, sums, maxint, *(() if ids32 is None else (ids32,)))
+    check_launch("kernel A", rows_u8, img, sums, maxint, *(() if ids32 is None else (ids32,)))
     with torch.cuda.device(dev):
         rc = _build.lib().doppel_score_window_select(
             rows_u8.data_ptr(), None if ids32 is None else ids32.data_ptr(), img.data_ptr(),
@@ -305,7 +305,7 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if src.device.type == "cpu":
         return gather_rows_plain(src, ids)
     ids32 = ids.to(torch.int32).contiguous()
-    dev = _check_launch("kernel C", src, ids32)
+    dev = check_launch("kernel C", src, ids32)
     U, nbytes = ids32.shape[0], src.shape[1]
     if nbytes % 16:
         raise ValueError(f"kernel C takes rows of a multiple of 16 bytes, got {nbytes}")
@@ -378,7 +378,7 @@ def score_full(packed: torch.Tensor, union_ids: torch.Tensor, w: torch.Tensor, s
         raise TypeError("sums and maxint must be float32")
     ids32 = union_ids.to(torch.int32).contiguous()
     img = kernel_a_weights(w, 1, score_dtype)
-    dev = _check_launch("kernel D", packed, ids32, img, sums, maxint)
+    dev = check_launch("kernel D", packed, ids32, img, sums, maxint)
     out = torch.empty((QB, nbytes * 8), dtype=out_dtype, device=dev)
     if QB == 0:
         return out
@@ -503,7 +503,7 @@ def jaccard_topk_v1(packed: torch.Tensor, sums: torch.Tensor, union_ids: torch.T
                          f"{_E_MAX_SLOTS} slots a query, got tb={tb}, {ntp} titles, k={k}, LQ={LQ}")
     ids32 = union_ids.to(torch.int32).contiguous()
     pos32 = w_pos.to(torch.int32).contiguous()
-    dev = _check_launch("kernel E", packed, ids32, pos32, w_val, sums, maxint)
+    dev = check_launch("kernel E", packed, ids32, pos32, w_val, sums, maxint)
     vals = torch.empty((QB, k), dtype=torch.float32, device=dev)
     titles = torch.empty((QB, k), dtype=torch.int32, device=dev)
     if QB == 0:
@@ -529,10 +529,14 @@ jaccard_topk_v1.launches = 0
 # ------------------------------------------------------- graph bookkeeping
 
 def launch_counters():
-    """(kernel wrapper, counter) of every launch count, B's and F's too."""
+    """(kernel wrapper, counter) of every launch count, B's, F's and G's
+    too (G's wrapper lives in ``ops/fold.py``, which imports this module)."""
+    from doppelspeller_tpu_torch.ops import fold
+
     return [(score_window_select, "launches"), (score_window_select, "gathered"),
             (gather_rows, "launches"), (score_full, "launches"),
-            (jaccard_topk_v1, "launches"), (fk.window_best, "launches"), (lev.lcs, "launches")]
+            (jaccard_topk_v1, "launches"), (fk.window_best, "launches"), (lev.lcs, "launches"),
+            (fold.select_rescore, "launches")]
 
 
 def uncounted(capture):

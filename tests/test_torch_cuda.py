@@ -8,8 +8,9 @@ Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held equal to the JAX package by the other
 ``test_torch_*`` files).  Kernels: A (window select), B (sliding-window
 LCS), C (row gather), D (full Jaccard matrix), E (sparse weights, exact
-top-k) and F (whole-title LCS, bit for bit ``lcs_plain``, in a CUDA graph
-too).  D's and E's kernels, and A with ``union_ids``, read the union's
+top-k), F (whole-title LCS, bit for bit ``lcs_plain``, in a CUDA graph
+too) and G (the folded select and exact rescore, bit for bit
+``select_rescore_plain``, in the folded scorer's graphs too).  D's and E's kernels, and A with ``union_ids``, read the union's
 rows straight from the packed index; the tests hold them against the plain
 gather and scoring.  The one-dispatch path's graph replays are held
 against the same program run op by op, bit for bit, and the truth index
@@ -514,6 +515,130 @@ def test_kernel_f_replays_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert torch.equal(out, lev.lcs(*fresh))
         assert torch.equal(out, lev.lcs_plain(*fresh))
+
+
+# ---------------------------------------------------------------- kernel G
+
+def _g_inputs(seed, qb, nw, lq, ltw, nt, kp, device):
+    """Kernel G's inputs at a folded block's shape (16 titles a window):
+    window maxima in [0, 1) with a run of equal values across the k'
+    boundary, -1 past nt, one row of one value throughout and one of -0.0
+    and +0.0 under a few higher; titles as kernel A gives them (a window's tile), some past
+    nt; ids from a small vocabulary (many hits), V and weight 0 past each
+    row's trigrams, all-padding rows; a row's top two titles given one
+    trigram list and sum (equal rescored values)."""
+    rng = np.random.default_rng(seed)
+    from doppelspeller_tpu_torch.config import TRIGRAM_VOCAB_SIZE as V
+
+    ntp = 16 * nw
+    wmax = rng.random((qb, nw), dtype=np.float32)
+    wmax[:, (16 * np.arange(nw)) >= nt] = -1.0
+    order = np.argsort(-wmax, axis=1, kind="stable")
+    for q in range(qb):                              # 20 above the boundary, 40 below
+        wmax[q, order[q, max(kp - 20, 0): kp + 40]] = wmax[q, order[q, max(kp - 20, 0)]]
+    if qb > 2:
+        wmax[2] = 0.25
+    if qb > 3:                                       # -0.0 and +0.0 compare equal
+        wmax[3] = np.where(rng.random(nw) < 0.5, -0.0, 0.0)
+        wmax[3, rng.integers(0, nw, kp // 2)] = 0.5
+    warg = (16 * np.arange(nw)[None, :] + rng.integers(0, 16, (qb, nw))).astype(np.int32)
+    ids = rng.integers(0, 400, (qb, lq))
+    n_real = rng.integers(1, lq + 1, qb)
+    n_real[1 % qb] = 0
+    ids[np.arange(lq)[None, :] >= n_real[:, None]] = V
+    w_val = np.where(ids == V, 0.0, rng.random((qb, lq)) * 8 + 0.5).astype(np.float32)
+    maxint = w_val.sum(axis=1, dtype=np.float32)
+    tl = rng.integers(0, 400, (ntp, ltw)).astype(np.int32)
+    tl[np.arange(ltw)[None, :] >= rng.integers(1, ltw + 1, ntp)[:, None]] = V
+    tl[nt:] = V
+    sums = (rng.random(ntp, dtype=np.float32) * 40 + 10).astype(np.float32)
+    sums[nt:] = 0.0
+    top = np.argsort(-wmax, axis=1, kind="stable")[:, :2]
+    for q in range(qb):
+        a, b = warg[q, top[q, 0]], warg[q, top[q, 1]]
+        if a < nt and b < nt:
+            tl[b], sums[b] = tl[a], sums[a]
+    t = [torch.from_numpy(x).to(device) for x in (wmax, warg, tl, sums)]
+    return t + [torch.from_numpy(ids).to(device), torch.from_numpy(w_val).to(device),
+                torch.from_numpy(maxint).to(device)]
+
+
+@pytest.mark.parametrize("qb,nw,lq,ltw,nt,kp,k", [
+    (128, 32_768, 64, 64, 500_000, 128, 100),     # the 500k block
+    (1, 32_768, 128, 64, 500_000, 128, 100),
+    (8, 32_768, 253, 64, 500_000, 128, 100),
+    (8, 32_768, 64, 40, 300_000, 128, 100),       # many titles past nt
+    (37, 2_048, 64, 24, 30_000, 128, 10),
+    (4, 128, 64, 64, 2_000, 128, 100),            # k' = every window
+    (3, 65_536, 64, 64, 1_000_000, 1_024, 1_024),   # k' past 32 a warp
+])
+def test_kernel_g_equals_plain_exactly(cuda, qb, nw, lq, ltw, nt, kp, k):
+    from doppelspeller_tpu_torch.ops import fold
+
+    args = _g_inputs(qb + nw + lq, qb, nw, lq, ltw, nt, kp, cuda)
+    before = fold.select_rescore.launches
+    vals, pos = fold.select_rescore(*args, nt, kp, k)
+    assert fold.select_rescore.launches == before + 1
+    pv, pp = fold.select_rescore_plain(*args, nt, kp, k)
+    torch.cuda.synchronize()
+    assert vals.shape == (qb, k) and pos.dtype == torch.int32
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32)) and torch.equal(pos, pp)
+    assert bool((vals[:, :-1] >= vals[:, 1:]).all())
+    if qb > 1:                                   # the all-padding row: 0 for real titles
+        assert bool((vals[1] == torch.where(pos[1] < nt, 0.0, -1.0)).all())
+
+
+def test_kernel_g_rejects_what_it_does_not_take(cuda):
+    from doppelspeller_tpu_torch.ops import fold
+
+    args = _g_inputs(5, 4, 2_048, 64, 64, 30_000, 128, cuda)
+    wmax, warg, tl, sums, ids, w_val, maxint = args
+    bad = [
+        (TypeError, (wmax.half(), *args[1:]), 128, 10),
+        (TypeError, (*args[:4], ids.int(), *args[5:]), 128, 10),
+        (ValueError, (*args[:4], ids.repeat(1, 5)[:, :257].contiguous(),
+                      w_val.repeat(1, 5)[:, :257].contiguous(), maxint), 128, 10),   # LQ past 256
+        (ValueError, args, 2_048, 10),                               # k' past 1,024
+        (ValueError, (wmax, warg, tl[:, :62], *args[3:]), 128, 10),  # Ltw not a multiple of 4
+        (ValueError, (wmax[:, ::2], warg[:, ::2], *args[2:]), 128, 10),   # not contiguous
+        (ValueError, (*args[:3], sums.cpu(), *args[4:]), 128, 10),   # mixed devices
+        (ValueError, args, 128, 0),                                  # k of 0
+    ]
+    before = fold.select_rescore.launches
+    for exc, a, kp, k in bad:
+        with pytest.raises(exc):
+            fold.select_rescore(*a, 30_000, kp, k)
+    assert fold.select_rescore.launches == before
+
+
+def test_kernel_g_replays_in_the_folded_graphs_and_counts_them(mesh_world):
+    """The folded scorer's blocks captured as CUDA graphs (kernel A, then G)
+    replay to the op-by-op run's results bit for bit, and G's counter adds
+    one launch a block in every run, replays included; the exact engine
+    launches no G."""
+    from doppelspeller_tpu_torch.ops import fold
+    from doppelspeller_tpu_torch.ops.jaccard import JaccardScorer
+    from doppelspeller_tpu_torch.ops.ngram_index import build_truth_index
+    from doppelspeller_tpu_torch.ops.tiles import query_block
+
+    cfg, truth, queries = mesh_world
+    for mode in ("folded", "exact"):
+        c = cfg.with_(retrieval_mode=mode)
+        sc = JaccardScorer(build_truth_index(truth, c), c, "cuda", truth)
+        per_run = -(-len(queries) // query_block(c, folded=True)) if mode == "folded" else 0
+        w = sc.workers
+        w.use_graphs = False
+        before = fold.select_rescore.launches
+        v0, p0 = sc.topk(queries)
+        assert fold.select_rescore.launches == before + per_run
+        w.use_graphs = True
+        for _ in range(3):                           # op by op, captured, replayed
+            before = fold.select_rescore.launches
+            v1, p1 = sc.topk(queries)
+            assert fold.select_rescore.launches == before + per_run
+            assert np.array_equal(_bits(v0), _bits(v1)) and np.array_equal(p0, p1)
+        assert sum(w.replays["topk"]) > 0
+        sc.close()
 
 
 # ------------------------------------------------------------------ training
