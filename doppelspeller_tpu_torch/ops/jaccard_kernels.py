@@ -173,6 +173,12 @@ def untied_windows(rows_u8: torch.Tensor, w: torch.Tensor, sums: torch.Tensor,
 _A_QUERIES, _A_ROWS = 128, 64
 
 
+def kernel_a_queries(qb: int) -> int:
+    """The query rows kernel A computes for a block of ``qb`` queries: its
+    weight image pads them with zero weights to whole 128-query tiles."""
+    return -(-qb // _A_QUERIES) * _A_QUERIES
+
+
 def split_weights(w: torch.Tensor, score_dtype: str) -> torch.Tensor:
     """bf16 parts (P, QB, U) of f32 weights (QB, U) whose sum is the weight
     the contraction sees: one part, the bf16-rounded weight, in bf16 mode;
@@ -201,12 +207,11 @@ def kernel_a_weights(w: torch.Tensor, folds: int, score_dtype: str) -> torch.Ten
     parts = split_weights(w, score_dtype)
     P, QB, U = parts.shape
     C = U // folds
-    nqb = -(-QB // _A_QUERIES)
+    nq = kernel_a_queries(QB)
     nch = -(-C // _A_ROWS)
-    img = torch.zeros((P, nqb * _A_QUERIES, folds, nch * _A_ROWS), dtype=torch.bfloat16,
-                      device=w.device)
+    img = torch.zeros((P, nq, folds, nch * _A_ROWS), dtype=torch.bfloat16, device=w.device)
     img[:, :QB, :, :C] = parts.view(P, QB, folds, C)
-    img = img.view(P, nqb, 16, 8, folds, nch, 8, 8).permute(0, 4, 1, 5, 6, 2, 3, 7)
+    img = img.view(P, nq // _A_QUERIES, 16, 8, folds, nch, 8, 8).permute(0, 4, 1, 5, 6, 2, 3, 7)
     return img.contiguous()
 
 

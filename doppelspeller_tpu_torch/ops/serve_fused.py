@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from doppelspeller_tpu_torch.ops.fold import plan_id_blocks
+from doppelspeller_tpu_torch.ops.jaccard_kernels import kernel_a_queries
 from doppelspeller_tpu_torch.ops.ngram_index import plan_query_blocks
 from doppelspeller_tpu_torch.ops.tiles import device_word_grid, fuzzy_tile_bound, query_block, title_grid
 from doppelspeller_tpu_torch.utils import timing
@@ -102,6 +103,9 @@ class FusedServe:
         self.retrieval = scorer.engine(0)
         self.k = cfg.top_n_predicting
         self.qb = query_block(cfg, scorer.folded is not None)
+        # the query rows kernel A computes for a folded block, the request's
+        # padded to its tile (0 on the exact engine, whose A scores a union)
+        self.a_queries = kernel_a_queries(self.qb) if self.mode == "folded" else 0
         # static model buckets covering >= 99.9 % of the truth titles; rows
         # whose candidates exceed them go through the host stages
         L = cfg.max_characters
@@ -174,17 +178,23 @@ class FusedServe:
         host arrays.  Where the workers run graphs the key's graph is
         captured at its first request (whose result is the warm-up's) and
         replayed at every later one; ``eager``, or workers that run op by
-        op, run ``fused_cascade`` op by op (what a replay is held against)."""
-        rws, key, arrays = self.request(queries, rows)
-        segs, nbytes = _segments(key[2], self.qb, key[3], max(key[4], key[5]))
-        if key not in self._host:
-            pin = self.device.type == "cuda"
-            self._host[key] = (torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin),
-                               torch.empty(self.qb * (8 + self.k), dtype=torch.float32, pin_memory=pin))
-        host_in, host_out = self._host[key]
-        for name, dt, shape, sl in segs:
-            seg, n = host_in.numpy()[sl].view(dt).reshape(shape), len(arrays[name])
-            seg[:n], seg[n:] = arrays[name], 0            # zeros past the request's rows
+        op, run ``fused_cascade`` op by op (what a replay is held against).
+        The request's plan and its staging into the pinned input buffer are
+        the ``doppel.fused.plan`` span (counts ``folded``, ``lq``,
+        ``query_rows``, ``a_queries``)."""
+        with timing.span("doppel.fused.plan", folded=int(self.mode == "folded")) as sp:
+            rws, key, arrays = self.request(queries, rows)
+            sp.set(lq=key[3], query_rows=len(rws), a_queries=self.a_queries)
+            segs, nbytes = _segments(key[2], self.qb, key[3], max(key[4], key[5]))
+            if key not in self._host:
+                pin = self.device.type == "cuda"
+                self._host[key] = (torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin),
+                                   torch.empty(self.qb * (8 + self.k), dtype=torch.float32,
+                                               pin_memory=pin))
+            host_in, host_out = self._host[key]
+            for name, dt, shape, sl in segs:
+                seg, n = host_in.numpy()[sl].view(dt).reshape(shape), len(arrays[name])
+                seg[:n], seg[n:] = arrays[name], 0        # zeros past the request's rows
         # a graph replays on the caller's stream, which every run of the
         # shards joins (``to_first``) and every later one forks from: on an
         # H100 shard 0's stream cost 0.1-0.25 ms more a request after an idle

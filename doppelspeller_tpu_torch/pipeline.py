@@ -612,7 +612,7 @@ class Matcher:
         model bucket go to the host stages on the fetched candidates.  The
         ``doppel.fused`` span's seconds are the retrieval stage's."""
         fused = self._fused_engine()
-        with timing.timed("doppel.fused", rows=len(rem)) as sp:
+        with timing.timed("doppel.fused", rows=len(rem), folded=int(fused.mode == "folded")) as sp:
             rows, stats, cand, tlr = fused.dispatch(queries, rem)
             res.stage_seconds["retrieval"] = sp.seconds
             fz_matched, fz_pos, _ratio, md_cnt, md_pos, md_pred, probe_tl, probe_wl = stats[:, : len(rows)]
